@@ -5,12 +5,16 @@
 
 Builds the port's CUDA kernels from ``multi_view_active_learning_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card, checks PoseResNet-50 against the stored forward goldens and a
+card (K1 decode, K2 coreset distance, K3 / K4 fused deconv head at the
+head's three bench-width shapes), checks the card's int8 convolutions
+against the CPU's, PoseResNet-50 against the stored forward goldens and a
 full-width triangulation against ground truth, then drives the active-
 learning scoring pass at the width of ``bench.py`` (B=4 frames, V=31 views,
 256x256 crops, K=19 joints, 64 RANSAC pairs, PoseResNet-50) through
-``Engine.score_step`` in bfloat16 and float32, ``Engine.eval_step`` and the
-coreset ranking, with the kernels' launch counters read around that run.
+``Engine.score_step``: in bfloat16 and float32 with ``Engine.eval_step`` and
+the coreset ranking, then the int8 backbone (the default configuration)
+with the bf16 head and with K4, and the bf16 float path with K3.  The
+kernels' launch counters are set to 0 before each path and read after it.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as its last line
@@ -37,10 +41,22 @@ GOLDENS = os.path.join(REPO, "tests", "fixtures", "model_forward_goldens.npz")
 BATCH, VIEWS, IMG, JOINTS, DEPTH = 4, 31, 256, 19, 50
 POOL, POOL_DIM, LABELED, PICK = 2048, 3 * JOINTS, 200, 100
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): device memory and the
-# FP32 rate outside the tensor cores, the type both kernels compute in.
+# Published H100 SXM peaks (NVIDIA data sheet, dense): device memory, the
+# FP32 rate outside the tensor cores (K1, K2), the bf16 and int8 tensor-core
+# rates (K3, K4).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+
+# The deconv head's three layers at the main path's width, NHWC
+# (crops, H, W, Cin, Cout): PoseResNet-50's 2048-channel trunk at 8x8.
+CROPS = BATCH * VIEWS
+HEAD_SHAPES = [(CROPS, 8, 8, 2048, 256), (CROPS, 16, 16, 256, 256), (CROPS, 32, 32, 256, 256)]
+# Checked, not timed: Cin=640 (not a multiple of the TPU kernel's 256-wide
+# chunk) and a small ragged case (Cin=72 leaves a partial K tile; 5x7 maps
+# and 64 channels leave partial pixel and channel tiles).
+EXTRA_HEAD_SHAPES = [(CROPS, 8, 8, 640, 256), (6, 5, 7, 72, 64)]
 
 # Tolerances of kernel against plain version.
 K1_SOFT_RTOL, K1_SOFT_ATOL = 1e-4, 1e-3  # softmax moments, summed in another order
@@ -50,6 +66,26 @@ K1_SOFT_RTOL, K1_SOFT_ATOL = 1e-4, 1e-3  # softmax moments, summed in another or
 # terms in one FMA order, gets exactly 0 there).  atol is that floor at 8 ulps.
 K2_RTOL = 1e-3
 GT_MEAN_TOL, GT_MAX_TOL = 2.0, 5.0  # world units; stride-4 argmax quantization
+# K3 / K4 against their plain versions, on bf16 outputs: one bf16 rounding
+# step (2^-7 relative) where the float32 sums, taken in another order, land
+# on the other side of a rounding boundary, plus 1e-4 of the output scale
+# for values near the ReLU's zero.  K3 in float32: rtol 1e-4 and 1e-4 of
+# the scale (sums over up to 4 x 2048 terms in another order).  K4's s32
+# sums are exact and its epilogue is the plain version's, so it is held to
+# the same bf16 bar and its measured error is printed.
+HEAD_RTOL, HEAD_ATOL_OF_SCALE = 2.0**-7, 1e-4
+HEAD_F32_RTOL = 1e-4
+# Int8 paths against the float bf16 heatmaps: the JAX package's bar for
+# int8 against float (tests/test_quantize.py:33-39), cosine > 0.99 and
+# per-map argmax agreement > 0.8, set there on 64x64 crops of a random-
+# weight net with dynamic scales; it is applied at that input size (the
+# 64x64 maps of 256x256 crops of a random-weight net are tie-prone: even
+# bf16 against float32 float agrees on only about 0.9 of their argmaxes,
+# so at bench width the agreement is printed beside that floor and the
+# cosine bar holds).  The K3 path against the standard bf16 head: max error
+# <= 0.05 of the scale, cosine > 0.999.
+INT8_COS, INT8_ARGMAX_AGREE, INT8_BAR_IMG = 0.99, 0.8, 64
+K3_PATH_MAX_ERR, K3_PATH_COS = 0.05, 0.999
 
 
 def emit(phase: str, **fields) -> None:
@@ -239,6 +275,181 @@ def phase_k2(dev, flush):
     return row
 
 
+def _head_inputs(shape, dtype, dev, seed):
+    """Seeded inputs of one head layer: post-ReLU x NHWC, a [Cin, Cout, 4, 4]
+    weight scaled for O(1) outputs, and the folded BN (scale, bias) with
+    its raw statistics."""
+    import torch
+    from multi_view_active_learning_tpu_torch.kernels import deconv
+
+    n, h, w, cin, cout = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn((n, h, w, cin), generator=gen, device=dev)).to(dtype)
+    weight = torch.randn((cin, cout, 4, 4), generator=gen, device=dev) / float(np.sqrt(4 * cin))
+    gamma = torch.rand(cout, generator=gen, device=dev) + 0.5
+    beta = torch.randn(cout, generator=gen, device=dev) * 0.1
+    mean = torch.randn(cout, generator=gen, device=dev) * 0.1
+    var = torch.rand(cout, generator=gen, device=dev) + 0.5
+    scale, bias = deconv.fold_bn(gamma, beta, mean, var)
+    return x, weight, scale, bias, (gamma, beta, mean, var)
+
+
+def _head_err(got, ref, rtol, atol_of_scale):
+    """(max |got - ref|, max |ref|, whether |got - ref| <= rtol |ref| +
+    atol_of_scale max |ref| everywhere)."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    scale = float(torch.max(torch.abs(ref)))
+    err = torch.abs(got - ref)
+    ok = bool(torch.all(err <= rtol * torch.abs(ref) + atol_of_scale * scale))
+    return float(err.max()), scale, ok
+
+
+def _head_bound(shape, x_bytes, w_bytes, peak):
+    """(bytes-bound ms, operations-bound ms) of one head layer: x, weights
+    and BN read once, the output written once; 16 MACs per input pixel,
+    input channel and output channel."""
+    n, h, w, cin, cout = shape
+    nbytes = n * h * w * cin * x_bytes + cin * cout * 16 * w_bytes + 4 * n * h * w * cout * x_bytes + 8 * cout
+    ops = 2 * 16 * n * h * w * cin * cout
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
+def _head_row(name, source, replaces, per_shape, library_ms):
+    bytes_ms = sum(e["bound_bytes_ms"] for e in per_shape)
+    ops_ms = sum(e["bound_ops_ms"] for e in per_shape)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max(e["max_abs_err"] for e in per_shape),
+                ms=sum(e["ms"] for e in per_shape), plain_ms=sum(e["plain_ms"] for e in per_shape),
+                bound_ms=sum(max(e["bound_bytes_ms"], e["bound_ops_ms"]) for e in per_shape),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=library_ms)
+
+
+def phase_k3(dev, flush):
+    """K3 against its plain version at the head's three bench-width shapes
+    (bf16, timed) and at the extra shapes (bf16 and float32).  `ms` times the
+    kernel alone on packed weights; `wrapper_ms` adds the weight packing the
+    wrapper does per call.  The yardstick is the standard head's cuDNN
+    ConvTranspose2d + BatchNorm + ReLU in bf16 NCHW: three calls."""
+    import torch
+    import torch.nn.functional as F
+    from multi_view_active_learning_tpu_torch.kernels import deconv
+
+    per_shape, f32_errs, library_ms = [], [], 0.0
+    for idx, shape in enumerate(HEAD_SHAPES + EXTRA_HEAD_SHAPES):
+        x, weight, scale, bias, bn = _head_inputs(shape, torch.bfloat16, dev, 10 + idx)
+        got = deconv.fused_deconv_bn_relu(x, weight, scale, bias)
+        ref = deconv.fused_deconv_bn_relu_plain(x, weight, scale, bias)
+        torch.cuda.synchronize()
+        err, sc, ok = _head_err(got, ref, HEAD_RTOL, HEAD_ATOL_OF_SCALE)
+        check(ok, "K3 bf16 differs from plain at %s: %g (scale %g)" % (shape, err, sc))
+        if idx >= len(HEAD_SHAPES):
+            x32 = x.float()
+            e32, sc32, ok32 = _head_err(deconv.fused_deconv_bn_relu(x32, weight, scale, bias),
+                                        deconv.fused_deconv_bn_relu_plain(x32, weight, scale, bias),
+                                        HEAD_F32_RTOL, HEAD_F32_RTOL)
+            check(ok32, "K3 float32 differs from plain at %s: %g (scale %g)" % (shape, e32, sc32))
+            f32_errs.append(dict(shape=list(shape), bf16_err=err, f32_err=e32, scale=sc))
+            continue
+        args = deconv.k3_args(x, weight, scale, bias)
+        cout = shape[4]
+        xc, wc = x.permute(0, 3, 1, 2).contiguous(), weight.to(torch.bfloat16)
+        gamma, beta, mean, var = bn
+        lib = cuda_ms(lambda: torch.relu(F.batch_norm(
+            F.conv_transpose2d(xc, wc, stride=2, padding=1), mean, var, gamma, beta, False, 0.0, 1e-5)),
+            20, flush)
+        library_ms += lib
+        b_bytes, b_ops = _head_bound(shape, 2, 2, BF16_OPS_PER_S)
+        per_shape.append(dict(
+            shape=list(shape), max_abs_err=err, scale=sc,
+            ms=cuda_ms(lambda: deconv.launch(deconv.K3_ENTRY, x, args, cout), 20, flush),
+            wrapper_ms=cuda_ms(lambda: deconv.fused_deconv_bn_relu(x, weight, scale, bias), 20, flush),
+            plain_ms=cuda_ms(lambda: deconv.fused_deconv_bn_relu_plain(x, weight, scale, bias), 5, flush),
+            library_ms=lib, bound_bytes_ms=b_bytes, bound_ops_ms=b_ops))
+    row = _head_row("fused_deconv_bn_relu", "multi_view_active_learning_tpu_torch/csrc/deconv.cu",
+                    "multi_view_active_learning_tpu/ops/pallas/deconv.py:130", per_shape, library_ms)
+    emit("k3", per_shape=per_shape, extra=f32_errs, rtol=HEAD_RTOL,
+         atol_of_scale=HEAD_ATOL_OF_SCALE, ms=row["ms"], plain_ms=row["plain_ms"],
+         library_ms=library_ms, library="cudnn conv_transpose2d + batch_norm + relu (3 calls)",
+         bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+    return row
+
+
+def phase_k4(dev, flush):
+    """K4 against its plain version at the head's three bench-width shapes
+    (bf16 activations, timed) and at the extra shapes (bf16 and float32).
+    PyTorch has no int8 transposed convolution: no library yardstick."""
+    import torch
+    from multi_view_active_learning_tpu_torch.kernels import deconv
+
+    per_shape, extra = [], []
+    for idx, shape in enumerate(HEAD_SHAPES + EXTRA_HEAD_SHAPES):
+        x, weight, scale, bias, _ = _head_inputs(shape, torch.bfloat16, dev, 20 + idx)
+        wq, ws = deconv.quantize_deconv_weight(weight)
+        sx = torch.amax(torch.abs(x.float())) / 127.0
+        got = deconv.fused_deconv_bn_relu_int8(x, wq, ws, scale, bias, sx)
+        ref = deconv.fused_deconv_bn_relu_int8_plain(x, wq, ws, scale, bias, sx)
+        torch.cuda.synchronize()
+        err, sc, ok = _head_err(got, ref, HEAD_RTOL, HEAD_ATOL_OF_SCALE)
+        check(ok, "K4 differs from plain at %s: %g (scale %g)" % (shape, err, sc))
+        mismatches = int(torch.sum(got != ref))
+        if idx >= len(HEAD_SHAPES):
+            x32 = x.float()
+            e32, sc32, ok32 = _head_err(
+                deconv.fused_deconv_bn_relu_int8(x32, wq, ws, scale, bias, sx),
+                deconv.fused_deconv_bn_relu_int8_plain(x32, wq, ws, scale, bias, sx),
+                HEAD_F32_RTOL, HEAD_F32_RTOL)
+            check(ok32, "K4 float32 differs from plain at %s: %g (scale %g)" % (shape, e32, sc32))
+            extra.append(dict(shape=list(shape), bf16_err=err, bf16_mismatches=mismatches,
+                              f32_err=e32, scale=sc))
+            continue
+        args = deconv.k4_args(wq, ws, scale, bias, sx)
+        cout = shape[4]
+        b_bytes, b_ops = _head_bound(shape, 2, 1, INT8_OPS_PER_S)
+        per_shape.append(dict(
+            shape=list(shape), max_abs_err=err, mismatches=mismatches, scale=sc,
+            ms=cuda_ms(lambda: deconv.launch(deconv.K4_ENTRY, x, args, cout), 20, flush),
+            wrapper_ms=cuda_ms(
+                lambda: deconv.fused_deconv_bn_relu_int8(x, wq, ws, scale, bias, sx), 20, flush),
+            plain_ms=cuda_ms(
+                lambda: deconv.fused_deconv_bn_relu_int8_plain(x, wq, ws, scale, bias, sx), 5, flush),
+            bound_bytes_ms=b_bytes, bound_ops_ms=b_ops))
+    row = _head_row("fused_deconv_bn_relu_int8", "multi_view_active_learning_tpu_torch/csrc/deconv.cu",
+                    "multi_view_active_learning_tpu/ops/pallas/deconv.py:280", per_shape, None)
+    emit("k4", per_shape=per_shape, extra=extra, rtol=HEAD_RTOL, atol_of_scale=HEAD_ATOL_OF_SCALE,
+         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+    return row
+
+
+def phase_int8_conv(dev):
+    """The int8 backbone's s8 im2col products (torch._int_mm) on the card
+    against the CPU's: the stem and two 3x3 convs of PoseResNet-50 on 4
+    crops; the s32 accumulators must be bit-equal."""
+    import torch
+    from multi_view_active_learning_tpu_torch.models import quantize
+
+    gen = torch.Generator().manual_seed(5)
+    convs = {  # name: (input NHWC, Conv2d weight, stride)
+        "stem": ((4, IMG, IMG, 3), (64, 3, 7, 7), 2),
+        "layer1_0/conv2": ((4, IMG // 4, IMG // 4, 64), (64, 64, 3, 3), 1),
+        "layer2_0/conv2": ((4, IMG // 4, IMG // 4, 128), (128, 128, 3, 3), 2),
+    }
+    shapes = {}
+    for name, (xshape, wshape, stride) in convs.items():
+        x = torch.randn(xshape, generator=gen).to(torch.bfloat16)
+        wq, _ = quantize._quant_weight(torch.randn(wshape, generator=gen))
+        wq = wq.permute(0, 2, 3, 1).contiguous()
+        xq = quantize._quant_act(x, torch.amax(torch.abs(x.float())) / 127.0)
+        cpu = quantize._int8_conv(xq, wq, stride)
+        card = quantize._int8_conv(xq.to(dev), wq.to(dev), stride)
+        torch.cuda.synchronize()
+        check(torch.equal(card.cpu(), cpu), "int8 conv %s: card and CPU s32 sums differ" % name)
+        shapes[name] = list(cpu.shape)
+    emit("int8_conv", bit_equal=True, s32_shapes=shapes)
+
+
 def phase_model(dev):
     """PoseResNet-50 at 128x128 on the golden weights, TF32 off."""
     import torch
@@ -300,7 +511,9 @@ def phase_triangulation(dev, pairs):
          tolerance=[GT_MEAN_TOL, GT_MAX_TOL], inlier_count=inliers.tolist())
 
 
-def _engine(dtype, dev, state_dict):
+def _engine(dtype, dev, state_dict, **tpu):
+    """A depth-50 engine on the given weights; `tpu` sets TPU options (the
+    float paths turn the default int8 scoring off)."""
     from multi_view_active_learning_tpu_torch.config import get_default_configs
     from multi_view_active_learning_tpu_torch.engine import Engine
 
@@ -309,6 +522,8 @@ def _engine(dtype, dev, state_dict):
     cfg.POSE_ESTIMATOR.NUM_LAYERS = DEPTH
     cfg.TPU.INT8_SCORING = False
     cfg.TPU.COMPUTE_DTYPE = dtype
+    for key, value in tpu.items():
+        setattr(cfg.TPU, key, value)
     engine = Engine(cfg, device=dev)
     engine.load_state_dict(state_dict)
     return engine
@@ -341,8 +556,9 @@ def _check_scores(out, tag):
 
 
 def phase_main_path(dev):
-    """The scoring pass at bench.py width, with the launch counters read
-    around it."""
+    """The float scoring pass at bench.py width, with the launch counters
+    read around it.  Returns the counts and what the int8 and K3 paths
+    reuse: the weights, the inputs and the bf16 engine's heatmaps."""
     import torch
     from multi_view_active_learning_tpu_torch import kernels
     from multi_view_active_learning_tpu_torch.models import PoseResNet
@@ -365,7 +581,7 @@ def phase_main_path(dev):
     labeled = torch.from_numpy(np.arange(POOL) >= POOL - LABELED).to(dev)
 
     kernels.reset_launch_counts()
-    steps = {}
+    steps, heats = {}, {}
     for dtype, engine in engines.items():
         step_ms, out = _timed_steps(
             lambda: engine.score_step(images, proj, valid, pairs_t, gt), 2, 10
@@ -381,6 +597,7 @@ def phase_main_path(dev):
         steps[dtype] = dict(step_ms=step_ms, frames_per_s=BATCH / step_ms * 1e3,
                             forward_ms=forward_ms, triangulate_ms=tri_ms,
                             inlier_count=out["inlier_count"].tolist())
+        heats[dtype] = heat
     eval_out = engines["float32"].eval_step(images, proj, valid, pairs_t)
     coreset_ms, sel = _timed_steps(lambda: coreset.k_center_greedy(feats, labeled, PICK), 1, 3)
     torch.cuda.synchronize()
@@ -392,13 +609,98 @@ def phase_main_path(dev):
     plain_sel = coreset.k_center_greedy(feats.cpu(), labeled.cpu(), PICK).numpy()
     check(np.array_equal(sel, plain_sel), "coreset selection differs from the plain version's")
     check(bool((sel < POOL - LABELED).all()) and len(set(sel.tolist())) == PICK, "coreset picks")
-    for name, count in launches.items():
-        check(count > 0, "kernel %s was not launched on the main path" % name)
+    for name in ("fused_decode", "min_distance_to_centers"):
+        check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
+    for name in ("fused_deconv_bn_relu", "fused_deconv_bn_relu_int8"):
+        check(launches[name] == 0, "kernel %s launched on the standard-head path" % name)
     emit("main_path", batch=BATCH, views=VIEWS, img=IMG, joints=JOINTS, depth=DEPTH,
          pairs=len(pairs), steps=steps, coreset_ms=coreset_ms, pool=POOL, pick=PICK,
          tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
          launches=launches)
-    return launches
+    small = torch.from_numpy(rng.integers(
+        0, 256, size=(BATCH, VIEWS, INT8_BAR_IMG, INT8_BAR_IMG, 3)).astype(np.uint8)).to(dev)
+    ctx = dict(state_dict=state_dict, images=images, proj=proj, valid=valid, gt=gt,
+               pairs=pairs_t, heats=heats, small=small,
+               small_heat=engines["bfloat16"].forward(small))
+    return launches, ctx
+
+
+def _agreement(heat, ref):
+    """Cosine, max error over scale, and per-map argmax agreement of two
+    [B, V, K, h, w] heatmap sets."""
+    import torch
+
+    a, b = heat.float().reshape(-1), ref.float().reshape(-1)
+    cos = float(torch.dot(a, b) / (torch.linalg.norm(a) * torch.linalg.norm(b)))
+    scale = float(torch.max(torch.abs(b)))
+    maps = heat.shape[-2] * heat.shape[-1]
+    agree = float(torch.mean((heat.reshape(-1, maps).argmax(-1)
+                              == ref.reshape(-1, maps).argmax(-1)).float()))
+    return cos, float(torch.max(torch.abs(a - b))) / scale, agree
+
+
+# The paths through the head kernels, each a bf16 engine on the main path's
+# weights: TPU options, and the kernel it must launch 3 times per forward.
+PATHS = {
+    "int8": (dict(INT8_SCORING=True), None),  # the default configuration
+    "int8_k4": (dict(INT8_SCORING=True, INT8_DECONV=True), "fused_deconv_bn_relu_int8"),
+    "bf16_k3": (dict(PALLAS_HEAD=True), "fused_deconv_bn_relu"),
+}
+
+
+def phase_paths(dev, ctx):
+    """Each of PATHS at bench width: calibrated with int8_calibrate on its
+    batch (the int8 paths), then timed score_steps and forwards, with the
+    launch counters set to 0 before and read after.  Against the float bf16
+    engine's heatmaps on the same frames: the int8 paths at bench width
+    (cosine) and on 64x64 crops with dynamic scales (the JAX package's
+    int8 bar), the K3 path to the bf16 bar."""
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+
+    images = ctx["images"]
+    args = (images, ctx["proj"], ctx["valid"], ctx["pairs"], ctx["gt"])
+    float_floor = _agreement(ctx["heats"]["bfloat16"], ctx["heats"]["float32"])[2]
+    counts = {}
+    for name, (tpu, kernel) in PATHS.items():
+        engine = _engine("bfloat16", dev, ctx["state_dict"], **tpu)
+        check(engine.use_int8 == ("INT8_SCORING" in tpu), "%s: int8 gate" % name)
+        kernels.reset_launch_counts()
+        scales = engine.int8_calibrate(images)
+        forwards = int(scales is not None)
+        step_ms, out = _timed_steps(lambda: engine.score_step(*args, int8_scales=scales), 1, 5)
+        forward_ms, heat = _timed_steps(lambda: engine.forward(images, scales), 1, 3)
+        small_heat = engine.forward(ctx["small"])
+        torch.cuda.synchronize()
+        forwards += 6 + 4 + 1
+        launches = kernels.launch_counts()
+        _check_scores(out, name)
+        check(launches["fused_decode"] == 6, "%s: K1 launches %s" % (name, launches))
+        for head in ("fused_deconv_bn_relu", "fused_deconv_bn_relu_int8"):
+            want = 3 * forwards if head == kernel else 0
+            check(launches[head] == want, "%s: %s launched %d times, want %d"
+                  % (name, head, launches[head], want))
+        cos, max_err, agree = _agreement(heat, ctx["heats"]["bfloat16"])
+        small = _agreement(small_heat, ctx["small_heat"])
+        if scales is not None:
+            check(cos > INT8_COS, "%s off the float heatmaps: cosine %g" % (name, cos))
+            check(small[0] > INT8_COS and small[2] > INT8_ARGMAX_AGREE,
+                  "%s off the float heatmaps at %dx%d: cosine %g, argmax agreement %g"
+                  % (name, INT8_BAR_IMG, INT8_BAR_IMG, small[0], small[2]))
+        else:
+            for c, e in ((cos, max_err), small[:2]):
+                check(c > K3_PATH_COS and e <= K3_PATH_MAX_ERR,
+                      "%s off the standard head: cosine %g, max error %g of scale" % (name, c, e))
+        emit("path_" + name, options=tpu, batch=BATCH, views=VIEWS, img=IMG, depth=DEPTH,
+             step_ms=step_ms, frames_per_s=BATCH / step_ms * 1e3, forward_ms=forward_ms,
+             scales=None if scales is None else len(scales), forwards=forwards,
+             cosine=cos, max_err_of_scale=max_err, argmax_agreement=agree,
+             float_bf16_f32_argmax_agreement=float_floor,
+             at_64=dict(cosine=small[0], max_err_of_scale=small[1], argmax_agreement=small[2]),
+             launches=launches)
+        counts[name] = launches
+        del engine
+    return counts
 
 
 def main() -> int:
@@ -419,12 +721,18 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-    rows = [phase_k1(dev, flush), phase_k2(dev, flush)]
+    rows = [phase_k1(dev, flush), phase_k2(dev, flush), phase_k3(dev, flush),
+            phase_k4(dev, flush)]
+    phase_int8_conv(dev)
     phase_model(dev)
     cfg = get_default_configs()
     pairs = all_view_pairs(VIEWS, cfg.AL.RANSAC_N_ITERS, int(cfg.RANDOM_SEED) & 0x7FFFFFFF)
     phase_triangulation(dev, pairs)
-    launches = phase_main_path(dev)
+    launches, ctx = phase_main_path(dev)
+    path_launches = phase_paths(dev, ctx)
+    # Each kernel's launches on the path that drives it.
+    launches["fused_deconv_bn_relu"] = path_launches["bf16_k3"]["fused_deconv_bn_relu"]
+    launches["fused_deconv_bn_relu_int8"] = path_launches["int8_k4"]["fused_deconv_bn_relu_int8"]
     for row in rows:
         row["launches"] = launches[row["name"]]
     emit("done", seconds=time.perf_counter() - t0)

@@ -5,6 +5,12 @@ strategy.py:584-634 and 1004-1147): uint8 multi-view frames ->
 ImageNet normalization in the compute dtype -> PoseResNet forward ->
 fused heatmap decode (K1) -> RANSAC-DLT triangulation -> AL metric.
 
+The forward is routed as the JAX engine routes it: the int8 backbone
+(models/quantize.py; ``TPU.INT8_SCORING``, on by default, gated per
+strategy, with K4 for the head under ``TPU.INT8_DECONV``), else the float
+trunk with the head through K3 (``TPU.PALLAS_HEAD``), else the standard
+float model.
+
 The engine owns the model and its weights (``load_state_dict``), runs on
 the CUDA device unless given ``device="cpu"``, and raises
 ``NotImplementedError`` for every config option this port does not
@@ -13,22 +19,20 @@ implement yet instead of ignoring it.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .kernels import deconv
 from .models import build_model, compute_dtype
+from .models import quantize
 from .ops import geometry
 from .ops import triangulate as tri
 
 # (config key, value that is not ported, ROADMAP queue item)
 _UNPORTED = (
-    ("TPU.INT8_SCORING", True, "Queue A10, int8 scoring"),
-    ("TPU.INT8_EVAL", True, "Queue A10, int8 scoring"),
-    ("TPU.INT8_DECONV", True, "Queue B4, K4 fused_deconv_bn_relu_int8"),
-    ("TPU.PALLAS_HEAD", True, "Queue B3, K3 fused_deconv_bn_relu"),
     ("TPU.SPACE_TO_DEPTH_STEM", True, "Queue A12, exact reformulation options"),
     ("TPU.FAST_DECONV", True, "Queue A12, exact reformulation options"),
     ("TPU.USE_PALLAS", False, "Queue B1; the port always decodes through its kernel"),
@@ -41,6 +45,16 @@ _UNPORTED = (
 )
 
 SCORING_STRATEGIES = ("TRIANGULATION", "RANDOM", "CORESET")
+
+# Strategies whose selection measured int8-safe in the JAX package
+# (tools/validate_learning.py --int8_compare, BENCH_NOTES round 4): they
+# consume argmax locations or triangulated geometry.  MPE and BSB rank raw
+# heatmap values, which requantization perturbs, so they score float.
+INT8_SAFE_STRATEGIES = ("TRIANGULATION", "HP", "CORESET", "RANDOM")
+
+# {strategy: minimum float tail stages} for strategies measured safe only
+# with a bf16 tail; empty, as in the JAX package.
+INT8_MIXED_TAIL: Dict[str, int] = {}
 
 
 def _get(cfg, dotted: str):
@@ -65,6 +79,46 @@ def check_ported(cfg) -> None:
         )
 
 
+def _int8_supported(cfg) -> bool:
+    """PoseResNet scores int8 by default; HRNet only with
+    TPU.INT8_SCORING_HRNET (int8 measured a net loss there on the TPU)."""
+    if cfg.POSE_ESTIMATOR.TYPE == "POSE_RESNET":
+        return True
+    return cfg.POSE_ESTIMATOR.TYPE == "HRNET" and bool(cfg.TPU.INT8_SCORING_HRNET)
+
+
+def use_int8(cfg) -> bool:
+    """Int8 backbone for the scoring path: TPU.INT8_SCORING, gated to the
+    int8-safe strategies (or those with a mixed float tail).
+    TPU.INT8_SCORING_FORCE overrides every gate.  CORESET with EMBEDDING
+    features reports False unless forced: its scoring runs the float
+    features forward regardless."""
+    if (cfg.AL.STRATEGY == "CORESET" and cfg.AL.CORESET_FEATURES == "EMBEDDING"
+            and not cfg.TPU.INT8_SCORING_FORCE):
+        return False
+    return (
+        bool(cfg.TPU.INT8_SCORING)
+        and _int8_supported(cfg)
+        and (cfg.AL.STRATEGY in INT8_SAFE_STRATEGIES
+             or cfg.AL.STRATEGY in INT8_MIXED_TAIL
+             or bool(cfg.TPU.INT8_SCORING_FORCE))
+    )
+
+
+def use_int8_eval(cfg) -> bool:
+    """Int8 backbone for the eval path (TPU.INT8_EVAL, off by default)."""
+    return bool(cfg.TPU.INT8_EVAL) and _int8_supported(cfg)
+
+
+def int8_float_tail(cfg) -> int:
+    """TPU.INT8_FLOAT_TAIL_STAGES, raised to the measured-safe minimum of
+    strategies in INT8_MIXED_TAIL unless TPU.INT8_SCORING_FORCE is set."""
+    tail = int(cfg.TPU.INT8_FLOAT_TAIL_STAGES)
+    if not cfg.TPU.INT8_SCORING_FORCE and cfg.AL.STRATEGY in INT8_MIXED_TAIL:
+        tail = max(tail, INT8_MIXED_TAIL[cfg.AL.STRATEGY])
+    return tail
+
+
 class Engine:
     """Owns the model and the scoring / eval steps."""
 
@@ -75,14 +129,33 @@ class Engine:
         self.dtype = compute_dtype(cfg)
         self.model = build_model(cfg).to(self.device).eval()
         self.stride = cfg.POSE_ESTIMATOR.STRIDE
+        self.use_int8 = use_int8(cfg)
+        self.use_int8_eval = use_int8_eval(cfg)
+        self.int8_float_tail = int8_float_tail(cfg)
+        # The port always runs its own kernels, so the heads follow the
+        # options alone (the JAX engine also needs a Pallas backend).
+        self.int8_head = bool(cfg.TPU.INT8_DECONV)
+        self.use_pallas_head = bool(cfg.TPU.PALLAS_HEAD) and cfg.POSE_ESTIMATOR.TYPE == "POSE_RESNET"
         self._pairs_cache: Dict[int, np.ndarray] = {}
         self._mean = torch.as_tensor(geometry.IMAGENET_MEAN, device=self.device).to(self.dtype)
         self._std = torch.as_tensor(geometry.IMAGENET_STD, device=self.device).to(self.dtype)
+        self._int8_weights: Optional[Dict[str, torch.Tensor]] = None
+        self._quantize(self.model.state_dict())
 
     def load_state_dict(self, state_dict) -> None:
         """Load reference-named weights (e.g. ``convert.from_flax``'s output),
-        strictly; float32 tensors are cast to the compute dtype."""
+        strictly; float32 tensors are cast to the compute dtype.  When an
+        int8 path is on, the given (float32) weights are also quantized, as
+        the JAX package quantizes its float32 parameters."""
         self.model.load_state_dict(state_dict, strict=True)
+        self._quantize(state_dict)
+
+    def _quantize(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        if self.use_int8 or self.use_int8_eval:
+            self._int8_weights = quantize.quantize_state_dict(
+                {k: v.to(self.device) for k, v in state_dict.items()},
+                self.cfg.POSE_ESTIMATOR.NUM_LAYERS, int8_head=self.int8_head,
+            )
 
     def pairs(self, num_views: int) -> np.ndarray:
         if num_views not in self._pairs_cache:
@@ -97,20 +170,54 @@ class Engine:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _flatten_normalize(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 [B, V, H, W, 3] -> normalized NCHW [B*V, 3, H, W] in the
+        """uint8 [B, V, H, W, 3] -> normalized NHWC [B*V, H, W, 3] in the
         compute dtype; float inputs are taken as already normalized."""
         B, V = images.shape[0], images.shape[1]
         flat = images.reshape((B * V,) + tuple(images.shape[2:]))
         if flat.dtype == torch.uint8:
             flat = (flat.to(self.dtype) / 255.0 - self._mean) / self._std
-        return flat.permute(0, 3, 1, 2).contiguous()
+        return flat
+
+    def _int8_forward(self, flat: torch.Tensor, act_scales=None, collect_scales=False):
+        if self._int8_weights is None:
+            raise RuntimeError("the int8 backbone is off in this engine's config")
+        return quantize.quantized_pose_resnet_forward(
+            self._int8_weights, flat, self.cfg.POSE_ESTIMATOR.NUM_LAYERS,
+            act_scales=act_scales, collect_scales=collect_scales,
+            int8_head=self.int8_head, float_tail_stages=self.int8_float_tail,
+        )
 
     @torch.inference_mode()
-    def forward(self, images) -> torch.Tensor:
-        """Inference heatmaps: [B, V, H, W, 3] -> float32 [B, V, K, h, w]."""
+    def int8_calibrate(self, images, for_eval: bool = False) -> Optional[Dict[str, torch.Tensor]]:
+        """One-batch activation-scale calibration for static int8 inference.
+        Returns the scale table to pass back as ``int8_scales``, or None when
+        the int8 path (scoring, or eval with ``for_eval``) is off, so callers
+        can pass the result through unconditionally."""
+        if not (self.use_int8_eval if for_eval else self.use_int8):
+            return None
+        _, scales = self._int8_forward(
+            self._flatten_normalize(self._tensor(images)), collect_scales=True)
+        return scales
+
+    @torch.inference_mode()
+    def forward(self, images, int8_scales: Optional[Mapping[str, torch.Tensor]] = None,
+                use_int8: Optional[bool] = None) -> torch.Tensor:
+        """Inference heatmaps: [B, V, H, W, 3] -> float32 [B, V, K, h, w].
+
+        ``use_int8`` selects the int8 backbone (None: the scoring default,
+        ``self.use_int8``); ``int8_scales`` is a static scale table from
+        ``int8_calibrate`` (None: dynamic scales)."""
         images = self._tensor(images)
         B, V = images.shape[0], images.shape[1]
-        out = self.model(self._flatten_normalize(images))
+        flat = self._flatten_normalize(images)
+        if self.use_int8 if use_int8 is None else use_int8:
+            out = self._int8_forward(flat, act_scales=int8_scales)
+        else:
+            x = flat.permute(0, 3, 1, 2).contiguous()
+            if self.use_pallas_head:
+                out = deconv.apply_pose_resnet_head(self.model(x, skip_head=True), self.model)
+            else:
+                out = self.model(x)
         return out.reshape((B, V) + tuple(out.shape[1:]))
 
     @torch.inference_mode()
@@ -123,14 +230,17 @@ class Engine:
         gt_keypoints_3d,
         al_strategy: str = "TRIANGULATION",
         generator: Optional[torch.Generator] = None,
+        int8_scales: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """Unlabeled-pool scoring: forward + triangulation + AL metric.
 
         images: uint8 [B, V, H, W, 3]; proj_matrices: [B, V, 3, 4];
         joint_valid: [B, K] bool; pairs: [P, 2]; gt_keypoints_3d: [B, K, 3].
         RANDOM draws from `generator` (a torch.Generator on this device,
-        seeded by the caller).  Returns keypoints_3d [B, K, 3],
-        sal_metric [B], inlier_count [B], al_metric [B] and mkpe [B].
+        seeded by the caller).  The forward is int8 when ``use_int8``, with
+        the static ``int8_scales`` of ``int8_calibrate`` if given.  Returns
+        keypoints_3d [B, K, 3], sal_metric [B], inlier_count [B],
+        al_metric [B] and mkpe [B].
         """
         if al_strategy not in SCORING_STRATEGIES:
             raise NotImplementedError(
@@ -139,7 +249,7 @@ class Engine:
             )
         if al_strategy == "RANDOM" and generator is None:
             raise ValueError("the RANDOM strategy needs a seeded torch.Generator")
-        heatmaps = self.forward(images)
+        heatmaps = self.forward(images, int8_scales, use_int8=self.use_int8)
         joint_valid = self._tensor(joint_valid, torch.bool)
         res = tri.triangulate_frames(
             heatmaps,
@@ -178,11 +288,13 @@ class Engine:
         }
 
     @torch.inference_mode()
-    def eval_step(self, images, proj_matrices, joint_valid, pairs) -> Dict[str, torch.Tensor]:
-        """Validation triangulation.  Decodes by hard argmax whatever
+    def eval_step(self, images, proj_matrices, joint_valid, pairs,
+                  int8_scales: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """Validation triangulation.  Float unless TPU.INT8_EVAL opts eval
+        into the int8 backbone.  Decodes by hard argmax whatever
         AL.USE_SOFTARGMAX / USE_REPROJECTION_XE say, as the reference's eval
         loop does (reference strategy.py:607-612)."""
-        heatmaps = self.forward(images)
+        heatmaps = self.forward(images, int8_scales, use_int8=self.use_int8_eval)
         res = tri.triangulate_frames(
             heatmaps,
             self._tensor(proj_matrices, torch.float32),

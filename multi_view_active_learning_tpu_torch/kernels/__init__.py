@@ -2,17 +2,21 @@
 PyTorch version:
 
   * ``decode``   -- K1, fused heatmap decode (``csrc/decode.cu``);
-  * ``pairwise`` -- K2, coreset min distance to centers (``csrc/pairwise.cu``).
+  * ``pairwise`` -- K2, coreset min distance to centers (``csrc/pairwise.cu``);
+  * ``deconv``   -- K3 and K4, the fused deconv + BN + ReLU head in float
+    and int8 (``csrc/deconv.cu``).
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and binds the C
 entry points with ctypes; importing this package builds nothing.
 """
 
-from . import decode, pairwise
+from . import decode, deconv, pairwise
 
 KERNELS = {
     "fused_decode": decode.fused_decode,
     "min_distance_to_centers": pairwise.min_distance_to_centers,
+    "fused_deconv_bn_relu": deconv.fused_deconv_bn_relu,
+    "fused_deconv_bn_relu_int8": deconv.fused_deconv_bn_relu_int8,
 }
 
 

@@ -40,6 +40,10 @@ SIGNATURES: Dict[str, List] = {
     "mval_fused_decode": [_P, _P, _I, _I, _I, _F, _P],
     # (features, center_mask, out, n, d, stream)
     "mval_min_distance_to_centers": [_P, _P, _P, _I, _I, _P],
+    # (x, packed weights, scale, bias, out, n, h, w, cin, cout, is_bf16, stream)
+    "mval_fused_deconv_bn_relu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (x, packed s8 weights, inv_sx, mult, bias, out, n, h, w, cin, cout, is_bf16, stream)
+    "mval_fused_deconv_bn_relu_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -86,3 +86,13 @@ def from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     walk(params, ())
     walk(batch_stats, ())
     return out
+
+
+def scales_from_jax(table: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """An int8 activation-scale table of the JAX package (name -> scalar
+    array, from its ``int8_calibrate``) -> {name: float32 scalar tensor},
+    the ``int8_scales`` the port's engine and int8 forward take."""
+    return {
+        name: torch.as_tensor(np.asarray(value, dtype=np.float32), device=device)
+        for name, value in table.items()
+    }

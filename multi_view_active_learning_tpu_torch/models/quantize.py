@@ -1,0 +1,251 @@
+"""Int8 PoseResNet inference for the scoring / eval path.
+
+The port of the JAX package's models/quantize.py (PoseResNet part; HRNet's
+int8 forward waits for HRNet, ROADMAP Queue A3):
+
+  * weights: symmetric per-output-channel s8, quantized once from the
+    float32 weights (``quantize_state_dict``, at every weight load);
+  * activations: symmetric per-tensor s8, ``round(x / sx)`` clipped to
+    +-127, with ``sx`` dynamic (max|x| / 127 of each conv input), static
+    (a table from a ``collect_scales=True`` calibration pass), or recorded;
+  * each conv is an s8 im2col product (channels-last, ``torch._int_mm``,
+    s32 accumulation, exact) and one float32 epilogue that folds the BN:
+    ``acc * (sx * ws * bn_scale) + bn_bias`` (+ ReLU), rounded to bf16;
+  * residual adds and the maxpool run in bf16 between blocks;
+    ``float_tail_stages`` runs the last stages' convs in bf16 instead;
+  * the deconv head runs the bf16 ``conv_transpose`` by default, or K4
+    (kernels/deconv.py::fused_deconv_bn_relu_int8) with ``int8_head``;
+  * the final 1x1 runs in float32.
+
+Activations are NHWC here; the scale-table keys are the JAX package's
+(``"stem"``, ``"layerS_I/conv1..3"``, ``"layerS_I/down"``, ``"deconv{i}"``),
+so a table calibrated by the JAX package drops in.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import deconv
+from ..ops.int8 import int8_matmul
+from .pose_resnet import RESNET_SPEC, BasicBlock
+
+_BF16 = torch.bfloat16
+
+
+def _quant_weight(w: torch.Tensor):
+    """Conv2d weight [Cout, Cin, kh, kw] float -> (s8 weights of the same
+    layout, per-Cout float32 scale).  The output channel is dim 0."""
+    w = w.to(torch.float32)
+    ws = torch.clamp(torch.amax(torch.abs(w), dim=(1, 2, 3)), min=1e-8) / 127.0
+    wq = torch.clamp(torch.round(w / ws[:, None, None, None]), -127, 127).to(torch.int8)
+    return wq, ws
+
+
+class _ActScales:
+    """Per-tensor activation scales: dynamic, static, or collecting."""
+
+    def __init__(self, table: Optional[Mapping[str, torch.Tensor]] = None, collect: bool = False):
+        self.table = table
+        self.collect = collect
+        self.recorded: Dict[str, torch.Tensor] = {}
+
+    def scale_for(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        if self.table is not None:
+            return self.table[name]
+        sx = torch.clamp(torch.amax(torch.abs(x.to(torch.float32))), min=1e-8) / 127.0
+        if self.collect:
+            self.recorded[name] = sx
+        return sx
+
+
+def _quant_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
+
+
+def _im2col(xq: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """NHWC [N, H, W, C] -> patches [N, Ho, Wo, k*k*C] ordered (ky, kx, c),
+    with the convolution's padding k // 2 (F.unfold refuses s8)."""
+    if k == 1:
+        return xq[:, ::stride, ::stride, :]
+    pad = k // 2
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    n, hp, wp, _ = xp.shape
+    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+    taps = [
+        xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride, :]
+        for ky in range(k) for kx in range(k)
+    ]
+    return torch.stack(taps, dim=3).reshape(n, ho, wo, -1)
+
+
+def _int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int) -> torch.Tensor:
+    """s8 NHWC input times s8 weights [Cout, k, k, Cin] -> s32 [N, Ho, Wo, Cout]."""
+    cols = _im2col(xq, wq.shape[1], stride)
+    n, ho, wo, depth = cols.shape
+    acc = int8_matmul(cols.reshape(n * ho * wo, depth), wq.reshape(wq.shape[0], depth))
+    return acc.reshape(n, ho, wo, -1)
+
+
+def _qconv_bn(x, qp, conv: str, bn: str, scales: _ActScales, name: str,
+              stride: int = 1, relu: bool = True) -> torch.Tensor:
+    """int8 conv + folded BN (+ ReLU), returning bf16 NHWC."""
+    sx = scales.scale_for(name, x)
+    acc = _int8_conv(_quant_act(x, sx), qp[conv + ".wq"], stride)
+    y = acc.to(torch.float32) * (sx * qp[conv + ".ws"] * qp[bn + ".scale"]) + qp[bn + ".bias"]
+    if relu:
+        y = torch.relu(y)
+    return y.to(_BF16)
+
+
+def _fconv_bn(x, qp, conv: str, bn: str, scales, name, stride: int = 1,
+              relu: bool = True) -> torch.Tensor:
+    """bf16 conv + folded BN (+ ReLU): the float twin of _qconv_bn for the
+    mixed-precision tail (``scales`` and ``name`` are not used)."""
+    w = qp[conv + ".weight"]
+    y = F.conv2d(x.to(_BF16).permute(0, 3, 1, 2), w, stride=stride, padding=w.shape[-1] // 2)
+    y = y.permute(0, 2, 3, 1).to(torch.float32) * qp[bn + ".scale"] + qp[bn + ".bias"]
+    if relu:
+        y = torch.relu(y)
+    return y.to(_BF16)
+
+
+def _residual_relu(out: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    return torch.relu(out.to(torch.float32) + residual.to(torch.float32)).to(_BF16)
+
+
+def _basic_block(x, qp, conv_bn: Callable, scales, tname, prefix, stride, downsample):
+    out = conv_bn(x, qp, tname + ".conv1", tname + ".bn1", scales, prefix + "/conv1", stride)
+    out = conv_bn(out, qp, tname + ".conv2", tname + ".bn2", scales, prefix + "/conv2",
+                  relu=False)
+    residual = x
+    if downsample:
+        residual = conv_bn(x, qp, tname + ".downsample.0", tname + ".downsample.1", scales,
+                           prefix + "/down", stride, relu=False)
+    return _residual_relu(out, residual)
+
+
+def _bottleneck_block(x, qp, conv_bn: Callable, scales, tname, prefix, stride, downsample):
+    out = conv_bn(x, qp, tname + ".conv1", tname + ".bn1", scales, prefix + "/conv1")
+    out = conv_bn(out, qp, tname + ".conv2", tname + ".bn2", scales, prefix + "/conv2", stride)
+    out = conv_bn(out, qp, tname + ".conv3", tname + ".bn3", scales, prefix + "/conv3",
+                  relu=False)
+    residual = x
+    if downsample:
+        residual = conv_bn(x, qp, tname + ".downsample.0", tname + ".downsample.1", scales,
+                           prefix + "/down", stride, relu=False)
+    return _residual_relu(out, residual)
+
+
+def _convs_and_bns(num_layers: int):
+    """(conv names, BN names) of the torch PoseResNet, head included."""
+    block_cls, layer_sizes = RESNET_SPEC[num_layers]
+    convs, bns = ["conv1"], ["bn1"]
+    n_convs = 2 if block_cls is BasicBlock else 3
+    for stage, blocks in enumerate(layer_sizes):
+        for i in range(blocks):
+            t = "layer%d.%d" % (stage + 1, i)
+            convs += ["%s.conv%d" % (t, j + 1) for j in range(n_convs)]
+            bns += ["%s.bn%d" % (t, j + 1) for j in range(n_convs)]
+            if i == 0:
+                convs.append(t + ".downsample.0")
+                bns.append(t + ".downsample.1")
+    convs += ["deconv_layers.%d" % (3 * i) for i in range(3)]
+    bns += ["deconv_layers.%d" % (3 * i + 1) for i in range(3)]
+    return convs, bns
+
+
+def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
+                        int8_head: bool = False) -> Dict[str, torch.Tensor]:
+    """Reference-named float weights -> what the int8 forward reads, on the
+    weights' device:
+
+      ``<conv>.wq`` [Cout, k, k, Cin] s8 (channels last) and ``<conv>.ws``
+      [Cout] for every backbone conv;
+      ``<conv>.weight`` in bf16 for every conv (the float tail and the bf16
+      head); ``deconv_layers.{3i}.wq`` / ``.ws`` (torch layout) with
+      ``int8_head``; ``<bn>.scale`` / ``.bias``, the float32 BN folds; and
+      ``final_layer.weight`` / ``.bias`` in float32.
+
+    Quantizes the weights as given, so pass the float32 state dict (the
+    JAX package quantizes float32 parameters)."""
+    convs, bns = _convs_and_bns(num_layers)
+    out: Dict[str, torch.Tensor] = {}
+    for conv in convs:
+        if conv + ".weight" not in state_dict:
+            continue  # a first block without a downsample
+        w = state_dict[conv + ".weight"].to(torch.float32)
+        out[conv + ".weight"] = w.to(_BF16)
+        if conv.startswith("deconv_layers"):
+            if int8_head:
+                out[conv + ".wq"], out[conv + ".ws"] = deconv.quantize_deconv_weight(w)
+            continue
+        wq, ws = _quant_weight(w)
+        out[conv + ".wq"] = wq.permute(0, 2, 3, 1).contiguous()
+        out[conv + ".ws"] = ws
+    for bn in bns:
+        if bn + ".weight" not in state_dict:
+            continue
+        out[bn + ".scale"], out[bn + ".bias"] = deconv.fold_bn(
+            *(state_dict[bn + "." + k].to(torch.float32)
+              for k in ("weight", "bias", "running_mean", "running_var")))
+    out["final_layer.weight"] = state_dict["final_layer.weight"].to(torch.float32)
+    out["final_layer.bias"] = state_dict["final_layer.bias"].to(torch.float32)
+    return out
+
+
+def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.Tensor,
+                                  num_layers: int, act_scales=None, collect_scales: bool = False,
+                                  int8_head: bool = False, float_tail_stages: int = 0):
+    """Int8 inference forward: normalized images NHWC [N, H, W, 3] ->
+    heatmaps NCHW [N, K, H/4, W/4] float32.
+
+    ``qp``: ``quantize_state_dict``'s output.  ``act_scales``: a static
+    scale table (the dict a ``collect_scales=True`` call returns, or one
+    carried from the JAX package by ``convert.scales_from_jax``); with
+    ``collect_scales=True`` the return value is ``(heatmaps, scales)``.
+    ``int8_head`` runs the deconv head through K4.  ``float_tail_stages``
+    runs the last n of the four residual stages in bf16."""
+    block_cls, layer_sizes = RESNET_SPEC[num_layers]
+    scales = _ActScales(act_scales, collect_scales)
+    x = images.to(_BF16)
+
+    # Stem: 7x7/s2 int8 conv + BN + ReLU, then the 3x3/s2 maxpool (-inf pad).
+    sx = scales.scale_for("stem", x)
+    acc = _int8_conv(_quant_act(x, sx), qp["conv1.wq"], 2)
+    x = torch.relu(acc.to(torch.float32) * (sx * qp["conv1.ws"] * qp["bn1.scale"]) + qp["bn1.bias"])
+    x = x.to(_BF16)
+    x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+    block_fn = _basic_block if block_cls is BasicBlock else _bottleneck_block
+    expansion = block_cls.expansion
+    inplanes = 64
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layer_sizes)):
+        stride = 1 if stage == 0 else 2
+        conv_bn = _fconv_bn if stage >= 4 - int(float_tail_stages) else _qconv_bn
+        for i in range(blocks):
+            downsample = i == 0 and (stride != 1 or inplanes != planes * expansion)
+            x = block_fn(x, qp, conv_bn, scales, "layer%d.%d" % (stage + 1, i),
+                         "layer%d_%d" % (stage + 1, i), stride if i == 0 else 1, downsample)
+        inplanes = planes * expansion
+
+    # Head: ConvTranspose + folded BN + ReLU, bf16 (cuDNN) or K4.
+    for i in range(3):
+        conv, bn = "deconv_layers.%d" % (3 * i), "deconv_layers.%d" % (3 * i + 1)
+        if int8_head:
+            sx = scales.scale_for("deconv%d" % i, x)
+            x = deconv.fused_deconv_bn_relu_int8(
+                x.contiguous(), qp[conv + ".wq"], qp[conv + ".ws"], qp[bn + ".scale"],
+                qp[bn + ".bias"], sx)
+        else:
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), qp[conv + ".weight"], stride=2, padding=1)
+            y = y.permute(0, 2, 3, 1).to(torch.float32) * qp[bn + ".scale"] + qp[bn + ".bias"]
+            x = torch.relu(y).to(_BF16)
+
+    out = deconv.final_1x1(x, qp["final_layer.weight"], qp["final_layer.bias"])
+    if collect_scales:
+        return out, scales.recorded
+    return out

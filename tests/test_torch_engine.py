@@ -13,6 +13,16 @@ bfloat16: the heatmaps are compared, max error <= 0.05 of their scale and
 cosine > 0.999 -- both frameworks round the activations to 8 mantissa bits
 at every layer, in other places, so argmaxes of near-equal peaks may flip
 and the triangulated outputs are checked for shape and finiteness only.
+
+Int8 scoring (TPU.INT8_SCORING, the default): the heatmaps of the port's
+and the JAX engine's int8 score_step on the same calibrated scales agree to
+cosine > 0.999 and per-map argmax agreement >= 0.95 (models/quantize.py's
+bar, tests/test_torch_quantize.py).  The calibrated tables have the same
+keys and each scale is within one bf16 step (2^-7 relative): a scale is the
+max of a bf16 activation, and one element of it may round one step apart
+(measured: one key of 20 off, by 2^-7.8; the normalized frames are equal).
+The TPU.PALLAS_HEAD forward against the JAX trunk + head in interpret
+mode, float32: max error <= 1e-4 of the scale.
 """
 
 import jax
@@ -25,6 +35,7 @@ from helpers import golden_fill_values, make_ring_cameras
 from multi_view_active_learning_tpu.config import get_default_configs as jax_default_configs
 from multi_view_active_learning_tpu.engine import Engine as JaxEngine
 from multi_view_active_learning_tpu.models import convert as jax_convert
+from multi_view_active_learning_tpu.ops.pallas import deconv as jax_deconv
 from multi_view_active_learning_tpu_torch import engine as torch_engine
 from multi_view_active_learning_tpu_torch.config import get_default_configs
 from multi_view_active_learning_tpu_torch.engine import Engine
@@ -33,12 +44,14 @@ from multi_view_active_learning_tpu_torch.models.convert import from_flax
 B, V, K, IMG = 2, 5, 4, 64
 
 
-def _configure(cfg, dtype):
+def _configure(cfg, dtype, **tpu):
     cfg.DATA.NUM_JOINTS = K
     cfg.DATA.INPUT_HEIGHT = cfg.DATA.INPUT_WIDTH = IMG
     cfg.POSE_ESTIMATOR.NUM_LAYERS = 18
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.TPU.INT8_SCORING = False
+    for key, value in tpu.items():
+        setattr(cfg.TPU, key, value)
     return cfg
 
 
@@ -67,10 +80,10 @@ def weights():
     return jax_convert.torch_state_dict_to_flax(values, "POSE_RESNET")
 
 
-def _engines(weights, dtype):
+def _engines(weights, dtype, **tpu):
     params, stats = weights
-    jax_engine = JaxEngine(_configure(jax_default_configs(), dtype))
-    port = Engine(_configure(get_default_configs(), dtype), device="cpu")
+    jax_engine = JaxEngine(_configure(jax_default_configs(), dtype, **tpu))
+    port = Engine(_configure(get_default_configs(), dtype, **tpu), device="cpu")
     port.load_state_dict(from_flax(params, stats))
     return jax_engine, port
 
@@ -192,8 +205,174 @@ def test_unported_option_raises(key, value):
 
 
 def test_default_config_raises_on_int8_scoring():
-    with pytest.raises(NotImplementedError, match="INT8_SCORING"):
-        Engine(get_default_configs(), device="cpu")
+    """The default configuration now scores int8; what int8 scoring does not
+    take yet still raises: the space-to-depth stem (ROADMAP Queue A12)."""
+    assert Engine(get_default_configs(), device="cpu").use_int8
+    cfg = get_default_configs()
+    cfg.TPU.SPACE_TO_DEPTH_STEM = True
+    with pytest.raises(NotImplementedError, match="SPACE_TO_DEPTH_STEM"):
+        Engine(cfg, device="cpu")
+
+
+def test_default_config_scores_through_int8_backbone():
+    engine = Engine(get_default_configs(), device="cpu")  # PoseResNet-50, 19 joints
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, size=(1, 3, IMG, IMG, 3)).astype(np.uint8)
+    proj = make_ring_cameras(3, img=IMG, focal=65.0)[None].astype(np.float32)
+    valid, gt = np.ones((1, 19), bool), np.zeros((1, 19, 3), np.float32)
+    out = engine.score_step(images, proj, valid, engine.pairs(3), gt, al_strategy="TRIANGULATION")
+    assert out["keypoints_3d"].shape == (1, 19, 3)
+    assert all(torch.isfinite(v).all() for v in out.values())
+    int8, flt = engine.forward(images), engine.forward(images, use_int8=False)
+    assert not torch.equal(int8, flt)  # the int8 backbone ran, not the float model
+    cos = float(torch.dot(int8.ravel(), flt.ravel()) / (int8.norm() * flt.norm()))
+    assert cos > 0.99, cos
+
+
+def _cfg_with(**changes):
+    cfg = get_default_configs()
+    for key, value in changes.items():
+        section, leaf = key.split("__")
+        setattr(getattr(cfg, section), leaf, value)
+    return cfg
+
+
+@pytest.mark.parametrize("strategy,force,expected", [
+    ("TRIANGULATION", False, True), ("HP", False, True), ("CORESET", False, True),
+    ("RANDOM", False, True), ("MPE", False, False), ("BSB", False, False),
+    ("MPE", True, True), ("BSB", True, True),
+])
+def test_int8_gate_per_strategy(strategy, force, expected):
+    """After tests/test_quantize.py:244-280: int8 only for the strategies
+    measured int8-safe, unless TPU.INT8_SCORING_FORCE."""
+    cfg = _cfg_with(AL__STRATEGY=strategy, TPU__INT8_SCORING_FORCE=force)
+    assert torch_engine.use_int8(cfg) is expected
+    assert (strategy in torch_engine.INT8_SAFE_STRATEGIES) is (strategy not in ("MPE", "BSB"))
+
+
+def test_int8_gate_coreset_embedding_and_master_switch():
+    assert not torch_engine.use_int8(_cfg_with(AL__STRATEGY="CORESET", AL__CORESET_FEATURES="EMBEDDING"))
+    assert torch_engine.use_int8(_cfg_with(AL__STRATEGY="CORESET", AL__CORESET_FEATURES="EMBEDDING",
+                                           TPU__INT8_SCORING_FORCE=True))
+    assert not torch_engine.use_int8(_cfg_with(TPU__INT8_SCORING=False))
+    assert not torch_engine.use_int8_eval(get_default_configs())
+    assert torch_engine.use_int8_eval(_cfg_with(TPU__INT8_EVAL=True))
+
+
+def test_int8_gate_per_model_family():
+    """After tests/test_quantize.py:210-230: PoseResNet on by default, HRNet
+    only with TPU.INT8_SCORING_HRNET, the master switch wins."""
+    assert torch_engine.use_int8(get_default_configs())
+    hrnet = _cfg_with(POSE_ESTIMATOR__TYPE="HRNET")
+    assert not torch_engine.use_int8(hrnet)
+    hrnet.TPU.INT8_SCORING_HRNET = True
+    assert torch_engine.use_int8(hrnet)
+    hrnet.TPU.INT8_SCORING = False
+    assert not torch_engine.use_int8(hrnet)
+
+
+def test_int8_float_tail():
+    assert torch_engine.int8_float_tail(_cfg_with(TPU__INT8_FLOAT_TAIL_STAGES=2)) == 2
+    assert torch_engine.INT8_MIXED_TAIL == {}
+
+
+@pytest.fixture(scope="module")
+def int8_runs(weights):
+    """Both engines' int8 score_step (float32 compute, so the normalized
+    frames are equal before the int8 forward's bf16 cast) on scales each
+    calibrated on the frames, and their heatmaps."""
+    params, stats = weights
+    jax_engine, port = _engines(weights, "float32", INT8_SCORING=True)
+    assert jax_engine.use_int8 and port.use_int8
+    images, proj, valid, gt = _inputs()
+    pairs = jax_engine.pairs(V)
+    args = [jnp.asarray(a) for a in (images, proj, valid, pairs, gt)]
+    jax_scales = jax_engine.int8_calibrate(params, stats, args[0])
+    port_scales = port.int8_calibrate(images)
+    ref = jax_engine.score_step(params, stats, *args, jax.random.PRNGKey(0), int8_scales=jax_scales)
+    got = port.score_step(images, proj, valid, pairs, gt, int8_scales=port_scales)
+    heat_ref = np.asarray(jax_engine.forward(params, stats, args[0], jax_scales)).transpose(0, 1, 4, 2, 3)
+    return dict(jax={k: np.asarray(v) for k, v in ref.items()}, port={k: v.numpy() for k, v in got.items()},
+                jax_scales={k: np.asarray(v) for k, v in jax_scales.items()}, port_scales=port_scales,
+                heat_ref=heat_ref, heat=port.forward(images, port_scales).numpy())
+
+
+def test_int8_calibration_matches_jax(int8_runs):
+    ref, got = int8_runs["jax_scales"], int8_runs["port_scales"]
+    assert set(got) == set(ref) and "stem" in got
+    for name in ref:
+        np.testing.assert_allclose(got[name].numpy(), ref[name], rtol=2.0**-7)
+    assert sum(float(got[n]) != float(ref[n]) for n in ref) <= 2
+
+
+def test_int8_score_step_matches_jax(int8_runs):
+    """Heatmaps: measured cosine 0.99993 and agreement 0.975 (one map of
+    40 decodes to another pixel).  Where every view of a joint decodes to
+    the same pixels, its keypoint agrees as in float32, and so do the
+    per-frame outputs of frames whose joints all agree."""
+    got, ref = int8_runs["heat"], int8_runs["heat_ref"]
+    cos = float(np.dot(got.ravel(), ref.ravel()) / (np.linalg.norm(got) * np.linalg.norm(ref)))
+    same = got.reshape(B, V, K, -1).argmax(-1) == ref.reshape(B, V, K, -1).argmax(-1)
+    assert cos > 0.999 and same.mean() >= 0.95, (cos, same.mean())
+    joint_ok = same.all(axis=1)  # [B, K]
+    frame_ok = joint_ok.all(axis=1)  # [B]
+    assert frame_ok.any()
+    ref, got = int8_runs["jax"], int8_runs["port"]
+    assert set(got) == {"keypoints_3d", "sal_metric", "inlier_count", "al_metric", "mkpe"}
+    assert joint_ok.sum() >= B * K - 1
+    np.testing.assert_allclose(got["keypoints_3d"][joint_ok], ref["keypoints_3d"][joint_ok], atol=1e-2)
+    np.testing.assert_array_equal(got["inlier_count"][frame_ok], ref["inlier_count"][frame_ok])
+    np.testing.assert_allclose(got["sal_metric"][frame_ok], ref["sal_metric"][frame_ok],
+                               rtol=1e-4, atol=1e-3)
+    assert all(np.isfinite(v).all() for v in got.values())
+
+
+def test_pallas_head_forward_matches_jax(weights):
+    """TPU.PALLAS_HEAD: the port's trunk + K3 head (plain version on the CPU)
+    against the JAX trunk + apply_pose_resnet_head in interpret mode (the
+    JAX engine itself takes the fused head only on a TPU)."""
+    params, stats = weights
+    jax_engine, port = _engines(weights, "float32", PALLAS_HEAD=True)
+    assert port.use_pallas_head
+    images = _inputs()[0]
+    flat = jax_engine._flatten_normalize(jnp.asarray(images))
+    trunk = jax_engine.model.apply({"params": params, "batch_stats": stats}, flat, train=False,
+                                   skip_head=True)
+    ref = np.asarray(jax_deconv.apply_pose_resnet_head(trunk, params, stats, interpret=True))
+    ref = ref.reshape((B, V) + ref.shape[1:]).transpose(0, 1, 4, 2, 3)
+    got = port.forward(images).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_int8_calibrate_returns_none_when_off(weights):
+    _, port = _engines(weights, "float32")
+    assert port.int8_calibrate(_inputs()[0]) is None
+    assert port.int8_calibrate(_inputs()[0], for_eval=True) is None
+
+
+def test_int8_eval_step(weights):
+    """TPU.INT8_EVAL opts eval into the int8 backbone; scoring stays float."""
+    _, port = _engines(weights, "float32", INT8_EVAL=True)
+    assert port.use_int8_eval and not port.use_int8
+    images, proj, valid, _ = _inputs()
+    scales = port.int8_calibrate(images, for_eval=True)
+    assert scales is not None and port.int8_calibrate(images) is None
+    out = port.eval_step(images, proj, valid, port.pairs(V), int8_scales=scales)
+    assert out["keypoints_3d"].shape == (B, K, 3) and torch.isfinite(out["keypoints_3d"]).all()
+
+
+def test_load_state_dict_requantizes(weights):
+    _, port = _engines(weights, "float32", INT8_SCORING=True, INT8_DECONV=True)
+    first = {k: v.clone() for k, v in port._int8_weights.items() if torch.is_tensor(v)}
+    assert first["deconv_layers.0.wq"].dtype == torch.int8
+    state = from_flax(*weights)
+    state = {k: v * 0.5 if k.endswith(".weight") else v for k, v in state.items()}
+    port.load_state_dict(state)
+    now = port._int8_weights
+    assert torch.equal(now["conv1.ws"], first["conv1.ws"] * 0.5)
+    assert torch.equal(now["conv1.wq"], first["conv1.wq"])  # scale-invariant
+    assert torch.equal(now["deconv_layers.0.ws"], first["deconv_layers.0.ws"] * 0.5)
 
 
 def test_unported_strategy_raises_in_score_step():

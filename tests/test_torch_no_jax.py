@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import nothing of JAX or the JAX package.
+"""The port, chip_smoke.py and tools/profile_scoring_torch.py import nothing
+of JAX or the JAX package.
 
 An AST scan covers every import statement; a subprocess runs the port's
 CPU path with an import hook that refuses the banned modules, and checks
@@ -18,7 +19,8 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "multi_view_active_learning_tpu"}
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "profile_scoring_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -39,7 +41,8 @@ def test_port_has_the_expected_modules():
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     for name in ("config", "engine", "device", "ops/geometry", "ops/heatmap",
                  "ops/triangulate", "ops/coreset", "models/pose_resnet",
-                 "models/convert", "kernels/decode", "kernels/pairwise", "kernels/_build"):
+                 "models/convert", "models/quantize", "ops/int8", "kernels/decode",
+                 "kernels/pairwise", "kernels/deconv", "kernels/_build"):
         assert "multi_view_active_learning_tpu_torch/%s.py" % name in rel
 
 
@@ -86,6 +89,17 @@ SCRIPT = textwrap.dedent(
         out = engine.score_step(images, proj, valid, pairs, gt, al_strategy=strategy)
         assert out["keypoints_3d"].shape == (1, 3, 3)
     engine.eval_step(images, proj, valid, pairs)
+    # The default configuration: the int8 backbone, here with K4's head.
+    cfg = get_default_configs()
+    cfg.DATA.NUM_JOINTS = 3
+    cfg.POSE_ESTIMATOR.NUM_LAYERS = 18
+    cfg.TPU.INT8_DECONV = True
+    int8 = Engine(cfg, device="cpu")
+    assert int8.use_int8
+    scales = int8.int8_calibrate(images)
+    out = int8.score_step(images, proj, valid, pairs, gt, al_strategy="TRIANGULATION",
+                          int8_scales=scales)
+    assert out["keypoints_3d"].shape == (1, 3, 3)
     feats = torch.from_numpy(rng.normal(size=(20, 9)).astype(np.float32))
     labeled = torch.arange(20) >= 15
     assert coreset.k_center_greedy(feats, labeled, 4).shape == (4,)
