@@ -327,12 +327,35 @@ def _head_row(name, source, replaces, per_shape, library_ms):
                 library_ms=library_ms)
 
 
+def _ptxas(source):
+    """The -Xptxas -v lines of one source from the build log: per kernel,
+    its registers, shared memory and spills."""
+    from multi_view_active_learning_tpu_torch.kernels import _build
+
+    with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
+        text = f.read()
+    section = text.split("== %s\n" % source, 1)[-1].split("\n== ", 1)[0]
+    out, kernel = [], None
+    for line in section.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("Used" in line or "spill" in line):
+            out.append("%s: %s" % (kernel, line.split(":", 1)[-1].strip() if "Used" in line else line.strip()))
+    return out
+
+
+def _share(e):
+    return max(e["bound_bytes_ms"], e["bound_ops_ms"]) / e["ms"]
+
+
 def phase_k3(dev, flush):
     """K3 against its plain version at the head's three bench-width shapes
     (bf16, timed) and at the extra shapes (bf16 and float32).  `ms` times the
-    kernel alone on packed weights; `wrapper_ms` adds the weight packing the
-    wrapper does per call.  The yardstick is the standard head's cuDNN
-    ConvTranspose2d + BatchNorm + ReLU in bf16 NCHW: three calls."""
+    kernel alone on packed operands; `wrapper_ms` the wrapper on operands
+    packed once (the engine's call path, pack_k3 at weight load);
+    `unpacked_wrapper_ms` the public wrapper on raw weights, which packs
+    per call.  The yardstick is the standard head's cuDNN ConvTranspose2d +
+    BatchNorm + ReLU in bf16 NCHW: three calls."""
     import torch
     import torch.nn.functional as F
     from multi_view_active_learning_tpu_torch.kernels import deconv
@@ -353,8 +376,7 @@ def phase_k3(dev, flush):
             check(ok32, "K3 float32 differs from plain at %s: %g (scale %g)" % (shape, e32, sc32))
             f32_errs.append(dict(shape=list(shape), bf16_err=err, f32_err=e32, scale=sc))
             continue
-        args = deconv.k3_args(x, weight, scale, bias)
-        cout = shape[4]
+        ops = deconv.pack_k3(weight, scale, bias, x.dtype)
         xc, wc = x.permute(0, 3, 1, 2).contiguous(), weight.to(torch.bfloat16)
         gamma, beta, mean, var = bn
         lib = cuda_ms(lambda: torch.relu(F.batch_norm(
@@ -362,25 +384,33 @@ def phase_k3(dev, flush):
             20, flush)
         library_ms += lib
         b_bytes, b_ops = _head_bound(shape, 2, 2, BF16_OPS_PER_S)
-        per_shape.append(dict(
+        entry = dict(
             shape=list(shape), max_abs_err=err, scale=sc,
-            ms=cuda_ms(lambda: deconv.launch(deconv.K3_ENTRY, x, args, cout), 20, flush),
-            wrapper_ms=cuda_ms(lambda: deconv.fused_deconv_bn_relu(x, weight, scale, bias), 20, flush),
+            ms=cuda_ms(lambda: deconv.launch(x, ops), 20, flush),
+            wrapper_ms=cuda_ms(lambda: deconv.fused_deconv_bn_relu_packed(x, ops), 20, flush),
+            unpacked_wrapper_ms=cuda_ms(
+                lambda: deconv.fused_deconv_bn_relu(x, weight, scale, bias), 20, flush),
             plain_ms=cuda_ms(lambda: deconv.fused_deconv_bn_relu_plain(x, weight, scale, bias), 5, flush),
-            library_ms=lib, bound_bytes_ms=b_bytes, bound_ops_ms=b_ops))
+            library_ms=lib, bound_bytes_ms=b_bytes, bound_ops_ms=b_ops)
+        entry["share_of_bound"] = _share(entry)
+        per_shape.append(entry)
     row = _head_row("fused_deconv_bn_relu", "multi_view_active_learning_tpu_torch/csrc/deconv.cu",
                     "multi_view_active_learning_tpu/ops/pallas/deconv.py:130", per_shape, library_ms)
     emit("k3", per_shape=per_shape, extra=f32_errs, rtol=HEAD_RTOL,
          atol_of_scale=HEAD_ATOL_OF_SCALE, ms=row["ms"], plain_ms=row["plain_ms"],
+         wrapper_ms=sum(e["wrapper_ms"] for e in per_shape),
          library_ms=library_ms, library="cudnn conv_transpose2d + batch_norm + relu (3 calls)",
-         bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+         bound_ms=row["bound_ms"], bound_by=row["bound_by"], share_of_bound=row["bound_ms"] / row["ms"],
+         ptxas=_ptxas("deconv.cu"))
     return row
 
 
 def phase_k4(dev, flush):
     """K4 against its plain version at the head's three bench-width shapes
-    (bf16 activations, timed) and at the extra shapes (bf16 and float32).
-    PyTorch has no int8 transposed convolution: no library yardstick."""
+    (bf16 activations, timed) and at the extra shapes (bf16 and float32);
+    `ms`, `wrapper_ms` and `unpacked_wrapper_ms` as in phase_k3 (`ms`
+    includes the quantize pre-pass).  PyTorch has no int8 transposed
+    convolution: no library yardstick."""
     import torch
     from multi_view_active_learning_tpu_torch.kernels import deconv
 
@@ -405,21 +435,24 @@ def phase_k4(dev, flush):
             extra.append(dict(shape=list(shape), bf16_err=err, bf16_mismatches=mismatches,
                               f32_err=e32, scale=sc))
             continue
-        args = deconv.k4_args(wq, ws, scale, bias, sx)
-        cout = shape[4]
+        ops = deconv.pack_k4(wq, ws, scale, bias)
         b_bytes, b_ops = _head_bound(shape, 2, 1, INT8_OPS_PER_S)
-        per_shape.append(dict(
+        entry = dict(
             shape=list(shape), max_abs_err=err, mismatches=mismatches, scale=sc,
-            ms=cuda_ms(lambda: deconv.launch(deconv.K4_ENTRY, x, args, cout), 20, flush),
-            wrapper_ms=cuda_ms(
+            ms=cuda_ms(lambda: deconv.launch(x, ops, sx), 20, flush),
+            wrapper_ms=cuda_ms(lambda: deconv.fused_deconv_bn_relu_int8_packed(x, ops, sx), 20, flush),
+            unpacked_wrapper_ms=cuda_ms(
                 lambda: deconv.fused_deconv_bn_relu_int8(x, wq, ws, scale, bias, sx), 20, flush),
             plain_ms=cuda_ms(
                 lambda: deconv.fused_deconv_bn_relu_int8_plain(x, wq, ws, scale, bias, sx), 5, flush),
-            bound_bytes_ms=b_bytes, bound_ops_ms=b_ops))
+            bound_bytes_ms=b_bytes, bound_ops_ms=b_ops)
+        entry["share_of_bound"] = _share(entry)
+        per_shape.append(entry)
     row = _head_row("fused_deconv_bn_relu_int8", "multi_view_active_learning_tpu_torch/csrc/deconv.cu",
                     "multi_view_active_learning_tpu/ops/pallas/deconv.py:280", per_shape, None)
     emit("k4", per_shape=per_shape, extra=extra, rtol=HEAD_RTOL, atol_of_scale=HEAD_ATOL_OF_SCALE,
-         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+         ms=row["ms"], plain_ms=row["plain_ms"], wrapper_ms=sum(e["wrapper_ms"] for e in per_shape),
+         bound_ms=row["bound_ms"], bound_by=row["bound_by"], share_of_bound=row["bound_ms"] / row["ms"])
     return row
 
 

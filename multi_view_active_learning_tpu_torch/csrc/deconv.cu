@@ -9,39 +9,92 @@
 // sum over two taps a in {0, 1} of the input padded by one,
 //     y[2m + r] = sum_a Xp[m + r + a] * W[3 - 2a - r]        (torch layout)
 // so each of the four output phases (r, s) is a dense GEMM of its input
-// pixels [N*H*W, 4 taps x Cin] against [4 taps x Cin, Cout].  The wrapper
-// packs the weights per phase as [4 phases][Cout][4 taps][Cin_pad] (K
-// contiguous, Cin zero-padded to a multiple of 64).  The epilogue is
+// pixels [N*H*W, 4 taps x Cin] against [4 taps x Cin, Cout].  The weights
+// are packed once per load (kernels/deconv.py::pack_weight) as
+// [4 phases][Cout][4 taps][Cin_pad], K contiguous, Cin zero-padded to a
+// multiple of 16.  The epilogue is
 //     out = relu(acc * mult[co] + bias[co])   rounded once to x's type,
-// applied to the f32 (K3) or s32 (K4) accumulator, as on the TPU.
-//   * K3: mult = folded BN scale; bf16 operands on the tensor cores
-//     (mma.sync m16n8k16, f32 accumulation), or float32 on the CUDA cores.
-//   * K4: x is quantized while it is staged, q = clip(rint(x * inv_sx),
-//     -127, 127) with inv_sx = 1 / act_scale read from device memory; the
-//     weights arrive as per-Cout s8; mma.sync m16n8k32 s8 x s8 -> s32,
-//     exact; mult = act_scale * w_scale * BN scale.
+// applied to the f32 (K3) or s32 (K4) accumulator with __fmul_rn/__fadd_rn,
+// the plain version's separate multiply and add, so K4 is bit-exact.
+//   * K3: mult = folded BN scale; bf16 operands, f32 accumulation; float32
+//     activations run deconv_f32_kernel on the CUDA cores (off the scoring
+//     path).
+//   * K4: a pre-pass (deconv_quantize_kernel) quantizes x once,
+//     q = clip(rint(x * inv_sx), -127, 127) with inv_sx = 1 / max(sx, 1e-8)
+//     formed from the device scalar sx, into an s8 NHWC buffer whose
+//     channels are padded to 16 (a TMA stride is a multiple of 16 bytes);
+//     s8 x s8 -> s32 is exact; mult = (max(sx, 1e-8) * ws[co]) * bn_scale[co]
+//     is formed in the epilogue in the plain version's order, so neither a
+//     static nor a dynamic scale costs a launch or a host sync per call.
+//     The pre-pass was chosen over quantizing in a producer warpgroup: it
+//     takes bf16 and float32 x alike, meets the stride rule at Cin = 72, and
+//     costs one read of x and one write of q (0.17 GB over the three layers
+//     at bench width, beside the 0.47 GB of K4's own input, weights and
+//     output).
 //
 // Bound on an H100.  Operations: 16 * N*H*W * Cin * Cout multiply-adds.  At
-// the scoring width (124 crops of 256^2, PoseResNet-50) the three head
-// layers do 2.33e11 MACs = 4.66e11 operations: about 0.47 ms at the bf16
-// dense peak (989 TFLOP/s) and 0.24 ms at the int8 peak (1979 TOP/s).  The
-// bytes (the largest output, [124, 64, 64, 256] bf16, is 0.26 GB, 0.08 ms)
-// weigh less, so K3 and K4 are bound by operations.
+// the scoring width (124 crops of 256^2, PoseResNet-50) the three layers do
+// 2.33e11 MACs: 0.47 ms at the bf16 dense peak (989 TFLOP/s), 0.24 ms at
+// the int8 peak (1979 TOP/s).  Second constraint, the bytes: layer 3's
+// output ([124, 64, 64, 256] bf16, 0.26 GB) alone is 0.078 ms at 3.35 TB/s,
+// 29% of K3's and 58% of K4's operations bound for that layer, so its store
+// has to overlap the products.
 //
-// Design: one block computes a 128-pixel x 128-channel tile of one phase,
-// so the phases interleave in the epilogue and each output is stored once;
-// there is no [4, M, Cout] scratch and no separate interleave pass.  The K
-// loop walks the four taps and the Cin chunks.  K3 copies its tiles to
-// shared memory with cp.async, three stages deep, and fits 128 registers so
-// two blocks share an SM; K4 quantizes x on the way, so its tiles pass
-// through registers, double-buffered, the next tile's loads in flight during
-// the current tile's products.  Eight warps each own a 64 x 32 sub-tile
-// (4 x 4 mma tiles) and load their fragments with ldmatrix; shared rows are
-// padded to 20 words, which keeps those loads free of bank conflicts.  The
-// TPU kernel's sample grouping and 256-wide Cin chunks existed for VMEM and
-// are not kept.  Not yet done (later work): wgmma/TMA, a staged coalesced
-// store, K4 staging without the register round trip.
+// Design (one kernel template for both, deconv_wgmma_kernel):
+//   * Tile: 128 pixels of one phase x 256 output channels, so each A tile is
+//     read once for the whole Cout (Cout > 256 takes more N tiles; Cout < 256
+//     leaves zero-filled weight rows whose columns are not stored).  A 128-
+//     pixel tile is a box of whole rows: 2 images x 8 rows at 8x8, 8 rows at
+//     16x16, 4 rows at 32x32, 3 images x 5 rows at 5x7 (105 pixels; the rest
+//     of the tile is masked), 128 columns of one row when W >= 128.
+//   * A by TMA: a 4-D tensor map over x (or q) [C, W, H, N], box {128 bytes
+//     of channels, bw, rows, images}.  Tap (a, b) of phase (r, s) offsets the
+//     box by (r + a - 1, s + b - 1); TMA fills out-of-bounds with zeros, which
+//     is the pad of 1, the ragged pixel tile, and the Cin tail (Cin = 72,
+//     640).  B by TMA: a 4-D map over the packed weights [Cin_pad, 4, Cout,
+//     4], box {128 bytes, 1, 256, 1}.  Both with 128-byte swizzle, both
+//     K-major, as wgmma needs for s8.  The tiling plan (maps, boxes, tap
+//     offsets, tile counts) is computed in Python (kernels/deconv.py::
+//     tile_plan), where the CPU tests emulate the tile walk from it.
+//   * Warp specialization: two consumer warpgroups (setmaxnreg 232) each run
+//     wgmma.mma_async m64n256k16 (bf16 -> f32) or m64n256k32 (s8 -> s32) on
+//     64 of the 128 rows, 128 accumulator registers a thread, one commit
+//     group in flight; one producer thread (its warpgroup at setmaxnreg 40)
+//     keeps a ring of 4 stages of 48 KB (A 16 KB + B 32 KB) in flight on
+//     full/empty mbarriers.  This replaces mma.sync + ldmatrix (which cannot
+//     reach Hopper's full tensor-core rate) and K4's register staging.
+//   * Persistent: one block per SM walks tiles blockIdx.x, + gridDim.x, ...
+//     in the order (pixel tile, phase, Cout tile), so the four phases of a
+//     pixel tile run side by side and share their A bytes in L2.  The
+//     producer runs ahead across tiles, so the next tile's loads are in
+//     flight while the consumers store this one.  Waves at bench width (132
+//     SMs): 248 tiles (1.9 waves, 94% of the last wave busy), 992, 3968;
+//     layer 1's 128-deep K makes each tile long, and its 6% tail is left as
+//     it is (no split-K: a second pass over a [4, M, 256] f32 scratch would
+//     cost more than the tail).
+//   * Epilogue: each warp converts its 16 x 256 accumulators a 128-byte
+//     column chunk at a time into a padded staging tile in shared memory,
+//     then writes whole 16-byte vectors, eight lanes per output pixel row:
+//     coalesced, where the old kernel wrote 4-byte pairs.  The epilogue of a
+//     tile does not overlap the next tile's products: at layer 3 it costs
+//     about twice the output's bytes at the HBM rate
+//     (tools/deconv_breakdown.py builds the kernel with -DDECONV_NO_MMA and
+//     -DDECONV_LOADS_ONLY to time it without its products and epilogue).
+//     Three ways to overlap it measured slower on the card and were not
+//     kept: the producer warpgroup's idle warps storing a staged tile (a
+//     full 64 KB tile leaves room for 3 ring stages only; two 16 KB passes
+//     make the consumers wait on those warps), and TMA stores of staged
+//     passes through a 5-D map over the output (the consumers spilled).
+//   * A wait on an mbarrier that outlasts about 2^34 cycles traps, so a
+//     fault in the pipeline ends the launch with an error, not a hung card.
+//   * ptxas -v (sm_90a): deconv_wgmma_kernel 168 registers at launch (the
+//     producer warpgroup drops to 40, the consumers take 232), no stack, no
+//     spills; 216,128 bytes of dynamic shared memory a block (4 x 48 KB
+//     ring, 18 KB staging, barriers, 1 KB for alignment), one block an SM.
+//     deconv_quantize_kernel 30 registers; deconv_f32_kernel 63 registers,
+//     8,704 bytes of shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,33 +103,158 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;        // output pixels of one phase per block
-constexpr int kBN = 128;        // output channels per block
-constexpr int kBKW = 16;        // K tile in 32-bit words per row
-constexpr int kLDW = kBKW + 4;  // padded shared row, in words
-constexpr int kCinAlign = 64;   // packed weights pad Cin to a multiple of this
-
-struct Shape {
-  int n, h, w, cin, cout, cin_pad, m;  // m = n*h*w pixels of each phase
+// The tiling plan, field for field as kernels/deconv.py::tile_plan lays it
+// out (int64 each).  dims are innermost first; strides in bytes, of dims 1-3.
+// The entry points refuse a plan of another length (kernels/deconv.py
+// PLAN_LEN).
+struct Plan {
+  long long n, h, w, cin, cout, cin_a, kc, chunks;
+  long long bw, rows, imgs, j_tiles, i_tiles, n_tiles, tiles;
+  long long a_dims[4], a_strides[3], a_box[4];
+  long long b_dims[4], b_strides[3], b_box[4];
+  long long tap_dy[16], tap_dx[16];  // index phase * 4 + tap
 };
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// What the kernel reads of the plan.
+struct TileArgs {
+  int n, h, w, cout, chunks, kc, bw, rows, imgs, j_tiles, i_tiles, n_tiles, tiles;
+  unsigned a_bytes;  // bytes of one A box
+  signed char dy[16], dx[16];
+};
+
+constexpr int kConsumers = 2;                    // warpgroups running wgmma
+constexpr int kThreads = (kConsumers + 1) * 128;  // and one producer warpgroup
+constexpr int kTileM = 128, kTileN = 256, kRowBytes = 128;
+constexpr int kStages = 4;
+constexpr int kABytes = kTileM * kRowBytes;  // 16 KB
+constexpr int kBBytes = kTileN * kRowBytes;  // 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kStagingRow = kRowBytes + 16;  // padded: pair writes free of bank conflicts
+constexpr int kStagingBytes = 4 * kConsumers * 16 * kStagingRow;  // 16 rows per consumer warp
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kStagingBytes + 2 * kStages * 8;
+constexpr long long kWaitCycles = 1LL << 34;
+constexpr int kCinAlign = 16;  // kernels/deconv.py CIN_ALIGN
+
+struct TileCoord {
+  int phase, n0, i0, j0, co0;
+};
+
+// Tile t -> (pixel tile, phase, Cout tile), Cout tile fastest
+// (kernels/deconv.py::tile_coords).
+__device__ __forceinline__ TileCoord tile_coords(const TileArgs& t, int tile) {
+  const int nt = tile % t.n_tiles;
+  const int q = tile / t.n_tiles;
+  const int mt = q >> 2;
+  const int jb = mt % t.j_tiles;
+  const int rest = mt / t.j_tiles;
+  const int ib = rest % t.i_tiles;
+  const int nb = rest / t.i_tiles;
+  return TileCoord{q & 3, nb * t.imgs, ib * t.rows, jb * t.bw, nt * kTileN};
 }
 
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for the phase of `bar` with this parity; trap after kWaitCycles.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused.  The
+// tile base is 1024-byte aligned; a K step inside the 128-byte row adds its
+// byte offset to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keep the compiler from moving accumulator uses across the asynchronous
+// products.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define WGMMA_D128                                                                             \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "           \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "           \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "           \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "           \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "           \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "     \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127"
+#define D8(c, i) \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define D128(c)                                                                                   \
+  D8(c, 0), D8(c, 8), D8(c, 16), D8(c, 24), D8(c, 32), D8(c, 40), D8(c, 48), D8(c, 56), D8(c, 64), \
+      D8(c, 72), D8(c, 80), D8(c, 88), D8(c, 96), D8(c, 104), D8(c, 112), D8(c, 120)
+
+// One 64 x 256 x 32-byte product of the warpgroup: bf16 (k16) into f32.
+__device__ __forceinline__ void wgmma_k32b(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WGMMA_D128
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : D128("+f")
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// s8 (k32) into s32.
+__device__ __forceinline__ void wgmma_k32b(int (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" WGMMA_D128 "}, %128, %129, p;\n}\n"
+      : D128("+r")
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -93,295 +271,231 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// The two bf16 elements of one 32-bit word, as floats.
-__device__ __forceinline__ void unpack_bf16(uint32_t w, float& lo, float& hi) {
-  lo = __uint_as_float(w << 16);
-  hi = __uint_as_float(w & 0xffff0000u);
+// K3 (kInt8 = false: bf16 operands from x) and K4 (kInt8 = true: s8
+// operands from the pre-pass's q), output in Tout.  Maps: A over x or q,
+// B over the packed weights.  K4 reads sx and ws for its multiplier.
+template <bool kInt8, typename Tout>
+__global__ void __launch_bounds__(kThreads, 1)
+deconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b, const float* __restrict__ sx,
+                    const float* __restrict__ ws, const float* __restrict__ scale,
+                    const float* __restrict__ bias, Tout* __restrict__ out,
+                    const __grid_constant__ TileArgs t) {
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes + kStagingBytes);
+  uint64_t* empty = full + kStages;
+  const int wg = threadIdx.x / 128;
+  const int ktiles = 4 * t.chunks;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one thread keeps the ring full, across tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
+        const TileCoord c = tile_coords(t, tile);
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const int tap = kt / t.chunks;
+          const int ci = (kt - tap * t.chunks) * t.kc;
+          const int k = c.phase * 4 + tap;
+          const uint32_t bar = smem_u32(&full[stage]);
+          uint8_t* dst = smem + stage * kStageBytes;
+          mbar_expect_tx(bar, t.a_bytes + kBBytes);
+          tma_load_4d(smem_u32(dst), &map_a, bar, ci, c.j0 + t.dx[k], c.i0 + t.dy[k], c.n0);
+          tma_load_4d(smem_u32(dst + kABytes), &map_b, bar, ci, tap, c.co0, c.phase);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns tile rows 64 wg .. 64 wg + 63.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    uint8_t* staging = smem + kStages * kStageBytes + (wg * 4 + warp) * 16 * kStagingRow;
+    const float sxc = kInt8 ? fmaxf(__ldg(sx), 1e-8f) : 0.f;
+    const int box_pixels = t.bw * t.rows * t.imgs;
+    constexpr int kCols = kRowBytes / static_cast<int>(sizeof(Tout));  // columns per staged chunk
+    constexpr int kVec = 16 / static_cast<int>(sizeof(Tout));          // columns per 16-byte vector
+
+    Acc acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = Acc(0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
+      const TileCoord c = tile_coords(t, tile);
+      int prev = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(smem_u32(&full[stage]), phase);
+        const uint32_t a = smem_u32(smem + stage * kStageBytes) + wg * 64 * kRowBytes;
+        const uint32_t b = smem_u32(smem + stage * kStageBytes + kABytes);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#ifndef DECONV_NO_MMA  // tools/deconv_breakdown.py: the kernel without its products
+          wgmma_k32b(acc, sw128_desc(a + 32 * k), sw128_desc(b + 32 * k), (kt | k) != 0);
+#endif
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        if (kt > 0) {
+          wgmma_wait<1>();  // the previous stage's products are done: release it
+          if ((threadIdx.x & 127) == 0) mbar_arrive(smem_u32(&empty[prev]));
+        }
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if ((threadIdx.x & 127) == 0) mbar_arrive(smem_u32(&empty[prev]));
+#ifdef DECONV_LOADS_ONLY  // and without its epilogue: the rate the ring is fed at
+      continue;
+#endif
+
+      // Where this lane's four staged rows go: the output offset of the
+      // pixel (element index of channel 0), or -1 outside the problem.
+      const int pr = c.phase >> 1, ps = c.phase & 1;
+      long long obase[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = wg * 64 + warp * 16 + (lane >> 3) + 4 * u;
+        const int img = p / (t.bw * t.rows);
+        const int rem = p - img * t.bw * t.rows;
+        const int rr = rem / t.bw, col = rem - rr * t.bw;
+        const int n = c.n0 + img, i = c.i0 + rr, j = c.j0 + col;
+        const bool ok = p < box_pixels && n < t.n && i < t.h && j < t.w;
+        obase[u] = ok ? (static_cast<long long>(n * 2 * t.h + 2 * i + pr) * (2 * t.w) + 2 * j + ps) *
+                            t.cout
+                      : -1;
+      }
+
+#pragma unroll
+      for (int cc = 0; cc < kTileN / kCols; ++cc) {
+#pragma unroll
+        for (int jj = 0; jj < kCols / 8; ++jj) {
+          const int j = cc * (kCols / 8) + jj;  // 8-column group of the accumulator
+          const int col = jj * 8 + 2 * q;
+          const int co = c.co0 + cc * kCols + col;
+          float m0 = 0.f, m1 = 0.f, b0 = 0.f, b1 = 0.f;
+          if (co < t.cout) {
+            const float2 sc = __ldg(reinterpret_cast<const float2*>(scale + co));
+            const float2 bi = __ldg(reinterpret_cast<const float2*>(bias + co));
+            if (kInt8) {
+              const float2 w = __ldg(reinterpret_cast<const float2*>(ws + co));
+              m0 = __fmul_rn(__fmul_rn(sxc, w.x), sc.x);
+              m1 = __fmul_rn(__fmul_rn(sxc, w.y), sc.y);
+            } else {
+              m0 = sc.x;
+              m1 = sc.y;
+            }
+            b0 = bi.x;
+            b1 = bi.y;
+          }
+          Tout* row0 = reinterpret_cast<Tout*>(staging + g * kStagingRow) + col;
+          Tout* row8 = reinterpret_cast<Tout*>(staging + (g + 8) * kStagingRow) + col;
+          store_pair(row0, epilogue(to_float(acc[4 * j]), m0, b0),
+                     epilogue(to_float(acc[4 * j + 1]), m1, b1));
+          store_pair(row8, epilogue(to_float(acc[4 * j + 2]), m0, b0),
+                     epilogue(to_float(acc[4 * j + 3]), m1, b1));
+        }
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = (lane >> 3) + 4 * u, vec = lane & 7;
+          const int co = c.co0 + cc * kCols + vec * kVec;
+          if (obase[u] >= 0 && co < t.cout) {
+            *reinterpret_cast<uint4*>(out + obase[u] + co) =
+                *reinterpret_cast<const uint4*>(staging + row * kStagingRow + vec * 16);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
 }
 
+// K4's pre-pass: q = clip(rint(x * inv_sx), -127, 127) into s8 NHWC with
+// cin_a (a multiple of 16) channels, zeros past cin; 16 channels a thread.
 __device__ __forceinline__ int quant(float v, float inv) {
-  return min(max(__float2int_rn(v * inv), -127), 127);
+  return min(max(__float2int_rn(__fmul_rn(v, inv)), -127), 127);
 }
-
 __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
   return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
          ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
 }
 
-// Shared-memory helpers: a 16-byte asynchronous copy that writes zeros
-// when `full` is false (src-size 0 reads nothing), and four 8 x 8 b16
-// matrices per warp into mma fragments.
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src, bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint32_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// Tensor-core kernel, K3 (bf16, kInt8 = false) and K4 (kInt8 = true, Tin
-// bf16 or float).  One 16-byte shared vector holds kVec K elements: 8 bf16
-// or 16 s8.  A row of a tile is kBKW words = 4 vectors.  K3 copies its
-// tiles straight to shared memory with cp.async, kStages deep; K4 quantizes
-// x on the way, so its tiles pass through registers, double-buffered.
-template <bool kInt8>
-struct MmaConfig {
-  static constexpr int kStages = kInt8 ? 2 : 3;
-  static constexpr int kSmemBytes = kStages * (kBM + kBN) * kLDW * 4;
-  static constexpr int kMinBlocks = kInt8 ? 1 : 2;  // K3 fits 128 registers: two blocks an SM
-};
-
-template <typename Tin, bool kInt8>
-__global__ void __launch_bounds__(kThreads, MmaConfig<kInt8>::kMinBlocks)
-deconv_mma_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ wpk,
-                  const float* __restrict__ inv_sx, const float* __restrict__ mult,
-                  const float* __restrict__ bias, Tin* __restrict__ out, Shape s) {
-  using Acc = typename std::conditional<kInt8, int, float>::type;
-  constexpr int kStages = MmaConfig<kInt8>::kStages;
-  constexpr int kVec = kInt8 ? 16 : 8;               // K elements per shared vector
-  constexpr int kKTile = 4 * kVec;                   // K elements per tile row
-  constexpr int kPerLoad = 16 / sizeof(Tin);         // input elements per global uint4
-  constexpr int kRaw = kInt8 ? kVec / kPerLoad : 1;  // K4: global uint4 loads per shared vector
-  constexpr int kWBytes = kInt8 ? 1 : 2;             // bytes per packed weight
-  constexpr int kStageWords = (kBM + kBN) * kLDW;
-
-  extern __shared__ __align__(16) uint32_t smem[];  // kStages x (A tile, B tile)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int phase = blockIdx.z, pr = phase >> 1, ps = phase & 1;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int hw = s.h * s.w;
-  const float inv = kInt8 ? __ldg(inv_sx) : 1.f;
-
-  // Each thread stages shared vectors tid and tid + 256 of the 512 in each
-  // A and B tile: row v / 4, vector v % 4 of the row.  Its A rows (output
-  // pixels) are fixed for the whole K loop.
-  int row[2], vq[2], pn[2], pi[2], pj[2];
-  bool pok[2];
+template <typename Tin>
+__global__ void __launch_bounds__(256)
+deconv_quantize_kernel(const Tin* __restrict__ x, const float* __restrict__ sx,
+                       int8_t* __restrict__ xq, long long pixels, int cin, int cin_a) {
+  const float inv = __fdiv_rn(1.f, fmaxf(__ldg(sx), 1e-8f));
+  const int vecs = cin_a / 16;
+  const long long total = pixels * vecs;
+  for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; v < total;
+       v += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long p = v / vecs;
+    const int c0 = static_cast<int>(v - p * vecs) * 16;
+    const Tin* src = x + p * cin + c0;
+    float f[16];
+    constexpr int kPer = 16 / sizeof(Tin);  // elements per 16-byte load
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int v = tid + u * kThreads;
-    row[u] = v >> 2;
-    vq[u] = v & 3;
-    const int p = m0 + row[u];
-    pok[u] = p < s.m;
-    const int pp = pok[u] ? p : 0;
-    pn[u] = pp / hw;
-    const int rem = pp - pn[u] * hw;
-    pi[u] = rem / s.w;
-    pj[u] = rem - pi[u] * s.w;
-  }
-  const int chunks = s.cin_pad / kKTile;
-  const int ktiles = 4 * chunks;
-  const size_t wrow = 4 * static_cast<size_t>(s.cin_pad);  // packed weights per Cout row
-
-  // Where vector u of tile kt comes from: the A source (x if masked) and
-  // whether it is inside x, and the B source (wpk if masked) and whether
-  // it is inside the weights.
-  auto sources = [&](int kt, int u, const Tin*& a_src, bool& a_ok, const uint8_t*& b_src,
-                     bool& b_ok) {
-    const int tap = kt / chunks;
-    const int ci = (kt - tap * chunks) * kKTile + vq[u] * kVec;
-    const int iy = pi[u] + pr + (tap >> 1) - 1, ix = pj[u] + ps + (tap & 1) - 1;
-    a_ok = pok[u] && iy >= 0 && iy < s.h && ix >= 0 && ix < s.w && ci < s.cin;
-    a_src = a_ok ? x + (static_cast<size_t>(pn[u] * s.h + iy) * s.w + ix) * s.cin + ci : x;
-    const int co = n0 + row[u];
-    b_ok = co < s.cout;
-    b_src = b_ok ? wpk + ((static_cast<size_t>(phase * s.cout + co)) * wrow +
-                          static_cast<size_t>(tap) * s.cin_pad + ci) * kWBytes
-                 : wpk;
-  };
-  auto a_tile = [&](int stage) { return smem + stage * kStageWords; };
-  auto b_tile = [&](int stage) { return smem + stage * kStageWords + kBM * kLDW; };
-
-  // K3: asynchronous copies of tile kt into `stage`.
-  auto fetch = [&](int kt, int stage) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const Tin* a_src;
-      const uint8_t* b_src;
-      bool a_ok, b_ok;
-      sources(kt, u, a_src, a_ok, b_src, b_ok);
-      cp_async16(a_tile(stage) + row[u] * kLDW + vq[u] * 4, a_src, a_ok);
-      cp_async16(b_tile(stage) + row[u] * kLDW + vq[u] * 4, b_src, b_ok);
-    }
-  };
-
-  // K4: tile kt into registers, then quantized into shared memory.  The
-  // mask is per global uint4 (8 bf16 or 4 float), as Cin % 8 == 0.
-  uint4 ra[2][kRaw];
-  uint4 rb[2];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto load = [&](int kt) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const Tin* a_src;
-      const uint8_t* b_src;
-      bool a_ok, b_ok;
-      sources(kt, u, a_src, a_ok, b_src, b_ok);
-      const int ci = (kt % chunks) * kKTile + vq[u] * kVec;
-#pragma unroll
-      for (int r = 0; r < kRaw; ++r) {
-        const bool ok = a_ok && ci + r * kPerLoad < s.cin;
-        ra[u][r] = ok ? __ldg(reinterpret_cast<const uint4*>(a_src + r * kPerLoad)) : zero;
-      }
-      rb[u] = b_ok ? __ldg(reinterpret_cast<const uint4*>(b_src)) : zero;
-    }
-  };
-  auto commit = [&](int stage) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      float f[16];
-      if constexpr (sizeof(Tin) == 2) {
-#pragma unroll
-        for (int r = 0; r < kRaw; ++r) {
-          const uint32_t w4[4] = {ra[u][r].x, ra[u][r].y, ra[u][r].z, ra[u][r].w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) unpack_bf16(w4[e], f[r * 8 + 2 * e], f[r * 8 + 2 * e + 1]);
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < kRaw; ++r) {
-          f[r * 4 + 0] = __uint_as_float(ra[u][r].x);
-          f[r * 4 + 1] = __uint_as_float(ra[u][r].y);
-          f[r * 4 + 2] = __uint_as_float(ra[u][r].z);
-          f[r * 4 + 3] = __uint_as_float(ra[u][r].w);
-        }
-      }
-      uint32_t q[4];
+    for (int h = 0; h < 16 / kPer; ++h) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (c0 + h * kPer < cin) u = __ldg(reinterpret_cast<const uint4*>(src + h * kPer));
+      const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        q[e] = pack_s8(quant(f[4 * e], inv), quant(f[4 * e + 1], inv),
-                       quant(f[4 * e + 2], inv), quant(f[4 * e + 3], inv));
+        if constexpr (sizeof(Tin) == 2) {
+          f[h * 8 + 2 * e] = __uint_as_float(w4[e] << 16);
+          f[h * 8 + 2 * e + 1] = __uint_as_float(w4[e] & 0xffff0000u);
+        } else {
+          f[h * 4 + e] = __uint_as_float(w4[e]);
+        }
       }
-      *reinterpret_cast<uint4*>(a_tile(stage) + row[u] * kLDW + vq[u] * 4) =
-          make_uint4(q[0], q[1], q[2], q[3]);
-      *reinterpret_cast<uint4*>(b_tile(stage) + row[u] * kLDW + vq[u] * 4) = rb[u];
     }
-  };
-
-  Acc acc[4][4][4];
+    uint32_t qv[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
-
-  // Two mma K steps of 8 words per tile; fragments by ldmatrix (an s8
-  // fragment is the same 8 x 16-byte matrix as a bf16 one).
-  auto compute = [&](int stage) {
-    const uint32_t* A = a_tile(stage);
-    const uint32_t* B = b_tile(stage);
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], A + (wm * 64 + mi * 16 + (lane & 15)) * kLDW + ks * 8 + (lane >> 4) * 4);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t t[4];
-        ldmatrix_x4(t, B + (wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLDW + ks * 8 +
-                           ((lane >> 3) & 1) * 4);
-        bf[2 * nj][0] = t[0];
-        bf[2 * nj][1] = t[1];
-        bf[2 * nj + 1][0] = t[2];
-        bf[2 * nj + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af[mi], bf[ni]);
+    for (int e = 0; e < 4; ++e) {
+      qv[e] = pack_s8(quant(f[4 * e], inv), quant(f[4 * e + 1], inv), quant(f[4 * e + 2], inv),
+                      quant(f[4 * e + 3], inv));
     }
-  };
-
-  if constexpr (!kInt8) {
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < ktiles) fetch(st, st);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < ktiles; ++kt) {
-      cp_async_wait<kStages - 2>();  // this thread's copies of tile kt landed
-      __syncthreads();               // everyone's, and stage (kt - 1) is free
-      const int next = kt + kStages - 1;
-      if (next < ktiles) fetch(next, next % kStages);
-      cp_async_commit();
-      compute(kt % kStages);
-    }
-  } else {
-    load(0);
-    commit(0);
-    __syncthreads();
-    for (int kt = 0; kt < ktiles; ++kt) {
-      const int cur = kt & 1;
-      if (kt + 1 < ktiles) load(kt + 1);
-      compute(cur);
-      if (kt + 1 < ktiles) commit(cur ^ 1);
-      __syncthreads();
-    }
+    *reinterpret_cast<uint4*>(xq + p * cin_a + c0) = make_uint4(qv[0], qv[1], qv[2], qv[3]);
   }
-
-  // Epilogue: each accumulator pair is two neighbouring channels of one
-  // pixel of this phase, written at its interleaved place in the output.
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (p >= s.m) continue;
-      const int n = p / hw;
-      const int rem = p - n * hw;
-      const int i = rem / s.w, j = rem - i * s.w;
-      Tin* o = out + (static_cast<size_t>(n * 2 * s.h + 2 * i + pr) * (2 * s.w) + 2 * j + ps) * s.cout;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int co = n0 + wn * 32 + ni * 8 + t4 * 2;
-        if (co >= s.cout) continue;
-        const float v0 = epilogue(to_float(acc[mi][ni][half * 2]), __ldg(mult + co), __ldg(bias + co));
-        const float v1 = epilogue(to_float(acc[mi][ni][half * 2 + 1]), __ldg(mult + co + 1),
-                                  __ldg(bias + co + 1));
-        store_pair(o + co, v0, v1);
-      }
-    }
-  }
-}
-
-// Launch the tensor-core kernel, raising its dynamic shared memory limit
-// first (K3's three stages take 60 KB, above the 48 KB default).
-template <typename Tin, bool kInt8>
-cudaError_t launch_mma(const void* x, const void* wpk, const void* inv_sx, const void* mult,
-                       const void* bias, void* out, const Shape& s, cudaStream_t st) {
-  constexpr int kBytes = MmaConfig<kInt8>::kSmemBytes;
-  const cudaError_t e = cudaFuncSetAttribute(deconv_mma_kernel<Tin, kInt8>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((s.m + kBM - 1) / kBM, (s.cout + kBN - 1) / kBN, 4);
-  deconv_mma_kernel<Tin, kInt8><<<grid, kThreads, kBytes, st>>>(
-      static_cast<const Tin*>(x), static_cast<const uint8_t*>(wpk),
-      static_cast<const float*>(inv_sx), static_cast<const float*>(mult),
-      static_cast<const float*>(bias), static_cast<Tin*>(out), s);
-  return cudaGetLastError();
 }
 
 // K3 in float32 on the CUDA cores: 64 x 64 tiles, 16-deep K tiles, a 4 x 4
 // micro-tile per thread.  Not on the scoring path (bf16 there); it keeps
 // the float32 compute type exact in float32.
+struct Shape {
+  int n, h, w, cin, cout, cin_pad, m;  // m = n*h*w pixels of each phase
+};
+constexpr int kFThreads = 256;
 constexpr int kFM = 64, kFN = 64, kFK = 16;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFThreads)
 deconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
                   const float* __restrict__ mult, const float* __restrict__ bias,
                   float* __restrict__ out, Shape s) {
@@ -457,53 +571,165 @@ deconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
   }
 }
 
-Shape make_shape(int n, int h, int w, int cin, int cout) {
-  Shape s;
-  s.n = n;
-  s.h = h;
-  s.w = w;
-  s.cin = cin;
-  s.cout = cout;
-  s.cin_pad = (cin + kCinAlign - 1) / kCinAlign * kCinAlign;
-  s.m = n * h * w;
-  return s;
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 4-D map with 128-byte swizzle; out-of-bounds elements read as zero.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                const long long* dims, const long long* strides, const long long* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t b[4], e[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+  }
+  for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(strides[i]);
+  return fn(map, type, 4, const_cast<void*>(base), d, st, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  return sms;
+}
+
+template <bool kInt8, typename Tout>
+cudaError_t launch_wgmma(const void* a_src, const void* wpk, const void* sx, const void* ws,
+                         const void* scale, const void* bias, void* out, const Plan& p,
+                         cudaStream_t st) {
+  const CUtensorMapDataType type =
+      kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap map_a, map_b;
+  if (!encode_map(&map_a, type, a_src, p.a_dims, p.a_strides, p.a_box) ||
+      !encode_map(&map_b, type, wpk, p.b_dims, p.b_strides, p.b_box)) {
+    return cudaErrorInvalidValue;
+  }
+  TileArgs t;
+  t.n = static_cast<int>(p.n);
+  t.h = static_cast<int>(p.h);
+  t.w = static_cast<int>(p.w);
+  t.cout = static_cast<int>(p.cout);
+  t.chunks = static_cast<int>(p.chunks);
+  t.kc = static_cast<int>(p.kc);
+  t.bw = static_cast<int>(p.bw);
+  t.rows = static_cast<int>(p.rows);
+  t.imgs = static_cast<int>(p.imgs);
+  t.j_tiles = static_cast<int>(p.j_tiles);
+  t.i_tiles = static_cast<int>(p.i_tiles);
+  t.n_tiles = static_cast<int>(p.n_tiles);
+  t.tiles = static_cast<int>(p.tiles);
+  t.a_bytes = static_cast<unsigned>(p.a_box[0] * p.a_box[1] * p.a_box[2] * p.a_box[3] * (kInt8 ? 1 : 2));
+  for (int i = 0; i < 16; ++i) {
+    t.dy[i] = static_cast<signed char>(p.tap_dy[i]);
+    t.dx[i] = static_cast<signed char>(p.tap_dx[i]);
+  }
+  const cudaError_t e = cudaFuncSetAttribute(deconv_wgmma_kernel<kInt8, Tout>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int grid = t.tiles < sms ? t.tiles : sms;
+  deconv_wgmma_kernel<kInt8, Tout><<<grid, kThreads, kSmemBytes, st>>>(
+      map_a, map_b, static_cast<const float*>(sx), static_cast<const float*>(ws),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<Tout*>(out), t);
+  return cudaGetLastError();
+}
+
+template <typename Tin>
+cudaError_t launch_quantize(const void* x, const void* sx, void* xq, const Plan& p, cudaStream_t st) {
+  const long long pixels = p.n * p.h * p.w;
+  const long long total = pixels * (p.cin_a / 16);
+  long long blocks = (total + 255) / 256;
+  const long long cap = 8LL * (sm_count() > 0 ? sm_count() : 132);
+  if (blocks > cap) blocks = cap;
+  deconv_quantize_kernel<Tin><<<static_cast<int>(blocks), 256, 0, st>>>(
+      static_cast<const Tin*>(x), static_cast<const float*>(sx), static_cast<int8_t*>(xq), pixels,
+      static_cast<int>(p.cin), static_cast<int>(p.cin_a));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // K3.  x [n, h, w, cin] bf16 (is_bf16 = 1) or float32, weights packed
 // [4][cout][4][cin_pad] in x's type, scale/bias [cout] float32, out
-// [n, 2h, 2w, cout] in x's type.  The wrapper checks cin % 8 == 0 and
-// cout % 8 == 0.
+// [n, 2h, 2w, cout] in x's type, plan from kernels/deconv.py::tile_plan
+// (bf16: 2-byte elements) and its length in int64s.  The wrapper checks cin % 8 == 0, cout % 8 == 0
+// and 16-byte alignment.
 extern "C" int mval_fused_deconv_bn_relu(const void* x, const void* wpk, const void* scale,
-                                         const void* bias, void* out, int n, int h, int w,
-                                         int cin, int cout, int is_bf16, void* stream) {
-  const Shape s = make_shape(n, h, w, cin, cout);
+                                         const void* bias, void* out, const long long* plan,
+                                         int plan_len, int is_bf16, void* stream) {
+  if (plan_len != static_cast<int>(sizeof(Plan) / sizeof(long long))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan& p = *reinterpret_cast<const Plan*>(plan);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.m == 0) return static_cast<int>(cudaGetLastError());
+  if (p.n * p.h * p.w == 0) return static_cast<int>(cudaGetLastError());
   if (is_bf16) {
     return static_cast<int>(
-        launch_mma<__nv_bfloat16, false>(x, wpk, nullptr, scale, bias, out, s, st));
+        launch_wgmma<false, __nv_bfloat16>(x, wpk, nullptr, nullptr, scale, bias, out, p, st));
   }
-  const dim3 grid((s.m + kFM - 1) / kFM, (cout + kFN - 1) / kFN, 4);
-  deconv_f32_kernel<<<grid, kThreads, 0, st>>>(
+  Shape s;
+  s.n = static_cast<int>(p.n);
+  s.h = static_cast<int>(p.h);
+  s.w = static_cast<int>(p.w);
+  s.cin = static_cast<int>(p.cin);
+  s.cout = static_cast<int>(p.cout);
+  s.cin_pad = (s.cin + kCinAlign - 1) / kCinAlign * kCinAlign;
+  s.m = s.n * s.h * s.w;
+  const dim3 grid((s.m + kFM - 1) / kFM, (s.cout + kFN - 1) / kFN, 4);
+  deconv_f32_kernel<<<grid, kFThreads, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(wpk),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<float*>(out), s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4.  x [n, h, w, cin] bf16 (is_bf16 = 1) or float32, weights packed
-// [4][cout][4][cin_pad] s8, inv_sx a float32 scalar on the device,
-// mult/bias [cout] float32, out [n, 2h, 2w, cout] in x's type.
-extern "C" int mval_fused_deconv_bn_relu_int8(const void* x, const void* wpk, const void* inv_sx,
-                                              const void* mult, const void* bias, void* out,
-                                              int n, int h, int w, int cin, int cout, int is_bf16,
-                                              void* stream) {
-  const Shape s = make_shape(n, h, w, cin, cout);
+// K4.  x [n, h, w, cin] bf16 (is_bf16 = 1) or float32, xq an s8 scratch of
+// [n, h, w, cin_a], weights packed [4][cout][4][cin_pad] s8, sx the float32
+// activation scale on the device, ws/scale/bias [cout] float32, out
+// [n, 2h, 2w, cout] in x's type, plan from tile_plan (1-byte elements) and
+// its length.
+extern "C" int mval_fused_deconv_bn_relu_int8(const void* x, void* xq, const void* wpk,
+                                              const void* sx, const void* ws, const void* scale,
+                                              const void* bias, void* out, const long long* plan,
+                                              int plan_len, int is_bf16, void* stream) {
+  if (plan_len != static_cast<int>(sizeof(Plan) / sizeof(long long))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan& p = *reinterpret_cast<const Plan*>(plan);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.m == 0) return static_cast<int>(cudaGetLastError());
-  return static_cast<int>(
-      is_bf16 ? launch_mma<__nv_bfloat16, true>(x, wpk, inv_sx, mult, bias, out, s, st)
-              : launch_mma<float, true>(x, wpk, inv_sx, mult, bias, out, s, st));
+  if (p.n * p.h * p.w == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t e = is_bf16 ? launch_quantize<__nv_bfloat16>(x, sx, xq, p, st)
+                          : launch_quantize<float>(x, sx, xq, p, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = is_bf16 ? launch_wgmma<true, __nv_bfloat16>(xq, wpk, sx, ws, scale, bias, out, p, st)
+              : launch_wgmma<true, float>(xq, wpk, sx, ws, scale, bias, out, p, st);
+  return static_cast<int>(e);
 }

@@ -19,7 +19,7 @@ implement yet instead of ignoring it.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -140,17 +140,21 @@ class Engine:
         self._mean = torch.as_tensor(geometry.IMAGENET_MEAN, device=self.device).to(self.dtype)
         self._std = torch.as_tensor(geometry.IMAGENET_STD, device=self.device).to(self.dtype)
         self._int8_weights: Optional[Dict[str, torch.Tensor]] = None
-        self._quantize(self.model.state_dict())
+        self._k3_heads: Optional[List[deconv.K3Operands]] = None
+        self._prepare_weights(self.model.state_dict())
 
     def load_state_dict(self, state_dict) -> None:
         """Load reference-named weights (e.g. ``convert.from_flax``'s output),
         strictly; float32 tensors are cast to the compute dtype.  When an
         int8 path is on, the given (float32) weights are also quantized, as
-        the JAX package quantizes its float32 parameters."""
+        the JAX package quantizes its float32 parameters.  The heads' kernel
+        operands are packed here, once per load."""
         self.model.load_state_dict(state_dict, strict=True)
-        self._quantize(state_dict)
+        self._prepare_weights(state_dict)
 
-    def _quantize(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+    def _prepare_weights(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        if self.use_pallas_head:
+            self._k3_heads = deconv.pack_pose_resnet_head(self.model, self.dtype)
         if self.use_int8 or self.use_int8_eval:
             self._int8_weights = quantize.quantize_state_dict(
                 {k: v.to(self.device) for k, v in state_dict.items()},
@@ -215,7 +219,8 @@ class Engine:
         else:
             x = flat.permute(0, 3, 1, 2).contiguous()
             if self.use_pallas_head:
-                out = deconv.apply_pose_resnet_head(self.model(x, skip_head=True), self.model)
+                out = deconv.apply_pose_resnet_head(self.model(x, skip_head=True), self.model,
+                                                    self._k3_heads)
             else:
                 out = self.model(x)
         return out.reshape((B, V) + tuple(out.shape[1:]))

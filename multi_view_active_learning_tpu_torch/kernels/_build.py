@@ -35,15 +35,17 @@ NVCC_FLAGS = [
 # C entry points: name -> argument types.  Pointers and the stream are
 # c_void_p (a Python int would otherwise be cut to 32 bits).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PLAN = ctypes.POINTER(ctypes.c_longlong)  # kernels/deconv.py::tile_plan, flattened
 SIGNATURES: Dict[str, List] = {
     # (heatmaps, out, m, hw, width, stride, stream)
     "mval_fused_decode": [_P, _P, _I, _I, _I, _F, _P],
     # (features, center_mask, out, n, d, stream)
     "mval_min_distance_to_centers": [_P, _P, _P, _I, _I, _P],
-    # (x, packed weights, scale, bias, out, n, h, w, cin, cout, is_bf16, stream)
-    "mval_fused_deconv_bn_relu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (x, packed s8 weights, inv_sx, mult, bias, out, n, h, w, cin, cout, is_bf16, stream)
-    "mval_fused_deconv_bn_relu_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (x, packed weights, scale, bias, out, plan, plan length, is_bf16, stream)
+    "mval_fused_deconv_bn_relu": [_P, _P, _P, _P, _P, _PLAN, _I, _I, _P],
+    # (x, s8 scratch, packed s8 weights, sx, ws, scale, bias, out, plan, plan length,
+    #  is_bf16, stream)
+    "mval_fused_deconv_bn_relu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _PLAN, _I, _I, _P],
 }
 
 

@@ -166,7 +166,8 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
       ``<conv>.wq`` [Cout, k, k, Cin] s8 (channels last) and ``<conv>.ws``
       [Cout] for every backbone conv;
       ``<conv>.weight`` in bf16 for every conv (the float tail and the bf16
-      head); ``deconv_layers.{3i}.wq`` / ``.ws`` (torch layout) with
+      head); ``deconv_layers.{3i}.wq`` / ``.ws`` (torch layout) and
+      ``.wpk`` (K4's packed weights, kernels/deconv.py::pack_weight) with
       ``int8_head``; ``<bn>.scale`` / ``.bias``, the float32 BN folds; and
       ``final_layer.weight`` / ``.bias`` in float32.
 
@@ -182,6 +183,7 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
         if conv.startswith("deconv_layers"):
             if int8_head:
                 out[conv + ".wq"], out[conv + ".ws"] = deconv.quantize_deconv_weight(w)
+                out[conv + ".wpk"] = deconv.pack_weight(out[conv + ".wq"])
             continue
         wq, ws = _quant_weight(w)
         out[conv + ".wq"] = wq.permute(0, 2, 3, 1).contiguous()
@@ -237,9 +239,9 @@ def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.
         conv, bn = "deconv_layers.%d" % (3 * i), "deconv_layers.%d" % (3 * i + 1)
         if int8_head:
             sx = scales.scale_for("deconv%d" % i, x)
-            x = deconv.fused_deconv_bn_relu_int8(
-                x.contiguous(), qp[conv + ".wq"], qp[conv + ".ws"], qp[bn + ".scale"],
-                qp[bn + ".bias"], sx)
+            ops = deconv.K4Operands(qp[conv + ".wq"], qp[conv + ".ws"], qp[bn + ".scale"],
+                                    qp[bn + ".bias"], qp[conv + ".wpk"])
+            x = deconv.fused_deconv_bn_relu_int8_packed(x.contiguous(), ops, sx)
         else:
             y = F.conv_transpose2d(x.permute(0, 3, 1, 2), qp[conv + ".weight"], stride=2, padding=1)
             y = y.permute(0, 2, 3, 1).to(torch.float32) * qp[bn + ".scale"] + qp[bn + ".bias"]

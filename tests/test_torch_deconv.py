@@ -1,7 +1,8 @@
 """K3 and K4 (fused deconv + BN + ReLU): the port's plain versions against
 the JAX package's Pallas kernels in interpret mode, against
-F.conv_transpose2d + BN + ReLU, and the packed weight layout of the CUDA
-kernels against the phase formula.
+F.conv_transpose2d + BN + ReLU, the packed weight layout of the CUDA
+kernels against the phase formula, and the kernels' tile walk (TMA boxes
+read with zeros outside, from ``tile_plan``) against conv_transpose2d.
 
 Tolerances:
   * K3 in float32 against the interpret kernel and against
@@ -16,6 +17,9 @@ Tolerances:
   * The head against the JAX head (float32): rtol = atol = 1e-4.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +31,7 @@ from multi_view_active_learning_tpu.models.convert import deconv_weight_to_torch
 from multi_view_active_learning_tpu.models.pose_resnet import PoseResNet as FlaxPoseResNet
 from multi_view_active_learning_tpu.ops.pallas import deconv as jax_deconv
 from multi_view_active_learning_tpu_torch import kernels
-from multi_view_active_learning_tpu_torch.kernels import deconv
+from multi_view_active_learning_tpu_torch.kernels import _build, deconv
 from multi_view_active_learning_tpu_torch.models import PoseResNet
 from multi_view_active_learning_tpu_torch.models.convert import from_flax
 
@@ -173,13 +177,166 @@ def _emulate_kernel(x, packed, cout):
 def test_packed_layout_reproduces_conv_transpose(shape):
     x, k, _ = _problem(7, shape)
     w = _torch_weight(k)
-    packed = deconv._pack(w)
+    packed = deconv.pack_weight(w)
     cin, cout = shape[3], shape[4]
     assert packed.shape == (4, cout, 4, -(-cin // deconv.CIN_ALIGN) * deconv.CIN_ALIGN)
     assert packed.is_contiguous() and bool((packed[..., cin:] == 0).all())
     ref = F.conv_transpose2d(torch.from_numpy(x).permute(0, 3, 1, 2), w, stride=2, padding=1)
     got = _emulate_kernel(torch.from_numpy(x), packed, cout)
     np.testing.assert_allclose(got.numpy(), ref.permute(0, 2, 3, 1).numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _tma_box(t, start, box):
+    """What a TMA load reads: the box at ``start`` (dims innermost first, so
+    reversed from ``t``'s) of ``t``, zeros outside it."""
+    out = t.new_zeros(tuple(reversed(box)))
+    src, dst = [], []
+    for d, (s, b) in enumerate(zip(start, box)):
+        size = t.shape[t.dim() - 1 - d]
+        lo, hi = max(s, 0), min(s + b, size)
+        if hi <= lo:
+            return out
+        src.append(slice(lo, hi))
+        dst.append(slice(lo - s, hi - s))
+    out[tuple(reversed(dst))] = t[tuple(reversed(src))]
+    return out
+
+
+def _emulate_tile_walk(x, packed, plan):
+    """csrc/deconv.cu's tensor-core kernel in plain tensors, from the plan:
+    every tile's K loop of A and B boxes, then its masked scatter."""
+    n, h, w, cin = x.shape
+    cout = packed.shape[1]
+    xa = F.pad(x, (0, plan.cin_a - cin)).to(torch.float64)
+    wb = packed.to(torch.float64)
+    assert tuple(reversed(xa.shape)) == plan.a_dims and tuple(reversed(wb.shape)) == plan.b_dims
+    out = torch.full((n, 2 * h, 2 * w, cout), float("nan"), dtype=torch.float64)
+    box_pixels = plan.bw * plan.rows * plan.imgs
+    for tile in range(plan.tiles):
+        phase, n0, i0, j0, co0 = deconv.tile_coords(plan, tile)
+        acc = torch.zeros((deconv.TILE_M, deconv.TILE_N), dtype=torch.float64)
+        for kt in range(4 * plan.chunks):
+            tap, chunk = divmod(kt, plan.chunks)
+            ci, k = chunk * plan.kc, phase * 4 + tap
+            a = _tma_box(xa, (ci, j0 + plan.tap_dx[k], i0 + plan.tap_dy[k], n0), plan.a_box)
+            b = _tma_box(wb, (ci, tap, co0, phase), plan.b_box)
+            acc[:box_pixels] += a.reshape(box_pixels, plan.kc) @ b.reshape(deconv.TILE_N, plan.kc).t()
+        r, s = phase >> 1, phase & 1
+        for p in range(box_pixels):
+            img, rem = divmod(p, plan.bw * plan.rows)
+            row, col = divmod(rem, plan.bw)
+            nn, i, j = n0 + img, i0 + row, j0 + col
+            if nn < n and i < h and j < w:
+                cols = min(deconv.TILE_N, cout - co0)
+                out[nn, 2 * i + r, 2 * j + s, co0:co0 + cols] = acc[p, :cols]
+    return out
+
+
+# SHAPES (Cin=640 among them), the ragged 5x7 / Cin=72 case, a row wider
+# than a tile (W=130: two column tiles), Cout above one N tile (264), and
+# H=20 at W=16 (8-row tiles, the last one half outside the map).
+PLAN_SHAPES = SHAPES + [(2, 5, 7, 72, 64), (1, 2, 130, 8, 8), (1, 3, 3, 16, 264),
+                        (2, 20, 16, 8, 8)]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 1], ids=["bf16", "s8"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_tile_walk_reproduces_conv_transpose(shape, elem_bytes):
+    n, h, w, cin, cout = shape
+    x, k, _ = _problem(12, shape)
+    wt = _torch_weight(k)
+    plan = deconv.tile_plan(n, h, w, cin, cout, elem_bytes)
+    assert len(plan.flat()) == deconv.PLAN_LEN
+    # TMA's rules: 16-byte strides, a 128-byte swizzled row per box row, at
+    # most TILE_M pixels and 256 elements a box dim.
+    assert all(st % 16 == 0 for st in plan.a_strides + plan.b_strides)
+    assert plan.kc * elem_bytes == deconv.ROW_BYTES
+    assert plan.bw * plan.rows * plan.imgs <= deconv.TILE_M
+    assert max(plan.a_box + plan.b_box) <= 256
+    got = _emulate_tile_walk(torch.from_numpy(x), deconv.pack_weight(wt), plan)
+    ref = F.conv_transpose2d(torch.from_numpy(x).permute(0, 3, 1, 2), wt, stride=2, padding=1)
+    assert not torch.isnan(got).any()  # every output written
+    np.testing.assert_allclose(got.numpy(), ref.permute(0, 2, 3, 1).numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_packed_operands_on_cpu_match_raw_wrappers():
+    """The packed entry points take the plain version on the CPU, on the
+    raw operands they carry, and count no launch."""
+    x, k, bn = _problem(13, SHAPES[1])
+    scale, bias = _folds(bn)
+    w = _torch_weight(k)
+    wq, ws = deconv.quantize_deconv_weight(w)
+    xt = torch.from_numpy(x)
+    sx = torch.tensor(np.abs(x).max() / 127.0, dtype=torch.float32)
+    kernels.reset_launch_counts()
+    ops3 = deconv.pack_k3(w, scale, bias, torch.float32)
+    ops4 = deconv.pack_k4(wq, ws, scale, bias)
+    assert torch.equal(ops3.wpk, deconv.pack_weight(w)) and torch.equal(ops4.wpk, deconv.pack_weight(wq))
+    assert not ops3.wpk.requires_grad and ops4.wpk.dtype == torch.int8
+    torch.testing.assert_close(deconv.fused_deconv_bn_relu_packed(xt, ops3),
+                               deconv.fused_deconv_bn_relu(xt, w, scale, bias), rtol=0, atol=0)
+    torch.testing.assert_close(deconv.fused_deconv_bn_relu_int8_packed(xt, ops4, sx),
+                               deconv.fused_deconv_bn_relu_int8(xt, wq, ws, scale, bias, sx),
+                               rtol=0, atol=0)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+# Packed operands that do not fit x or each other: the kernel would read
+# past their ends, so the packed entry points refuse them on any device.
+MISMATCHES = {
+    "wpk_of_another_layer": lambda ops, other: ops._replace(wpk=other.wpk),
+    "wpk_not_contiguous": lambda ops, other: ops._replace(
+        wpk=ops.wpk.transpose(0, 2).contiguous().transpose(0, 2)),
+    "scale_short": lambda ops, other: ops._replace(scale=ops.scale[:-8]),
+    "bias_of_another_layer": lambda ops, other: ops._replace(bias=other.bias),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("mismatch", sorted(MISMATCHES))
+def test_packed_entry_points_refuse_mismatched_operands(mismatch, int8):
+    x, k, bn = _problem(14, SHAPES[1])
+    _, k_other, bn_other = _problem(15, (1, 2, 2, 96, 128))  # same Cin, Cout 128
+    xt = torch.from_numpy(x)
+    sx = torch.tensor(np.abs(x).max() / 127.0, dtype=torch.float32)
+
+    def ops_of(kk, bb):
+        w = _torch_weight(kk)
+        if int8:
+            return deconv.pack_k4(*deconv.quantize_deconv_weight(w), *_folds(bb))
+        return deconv.pack_k3(w, *_folds(bb), torch.float32)
+
+    ops = MISMATCHES[mismatch](ops_of(k, bn), ops_of(k_other, bn_other))
+    with pytest.raises(ValueError):
+        if int8:
+            deconv.fused_deconv_bn_relu_int8_packed(xt, ops, sx)
+        else:
+            deconv.fused_deconv_bn_relu_packed(xt, ops)
+
+
+def test_ws_mismatch_refused_by_k4():
+    x, k, bn = _problem(16, SHAPES[1])
+    ops = deconv.pack_k4(*deconv.quantize_deconv_weight(_torch_weight(k)), *_folds(bn))
+    with pytest.raises(ValueError):
+        deconv.fused_deconv_bn_relu_int8_packed(
+            torch.from_numpy(x), ops._replace(ws=ops.ws[:-8]), torch.tensor(0.1))
+
+
+def test_c_plan_struct_matches_tile_plan():
+    """csrc/deconv.cu's ``struct Plan`` has TilePlan's fields, in order and
+    of the same lengths, and PLAN_LEN int64s in all (the C entry points
+    refuse a plan of another length)."""
+    src = open(os.path.join(_build.CSRC, "deconv.cu")).read()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for decl in re.findall(r"long long ([^;]*);", body):
+        for item in decl.split(","):
+            m = re.fullmatch(r"\s*(\w+)(?:\[(\d+)\])?\s*", item)
+            fields.append((m.group(1), int(m.group(2) or 1)))
+    plan = deconv.tile_plan(2, 5, 7, 72, 64, 2)
+    assert [f for f, _ in fields] == list(deconv.TilePlan._fields)
+    assert [n for _, n in fields] == [len(v) if isinstance(v, tuple) else 1 for v in plan]
+    assert sum(n for _, n in fields) == deconv.PLAN_LEN == len(plan.flat())
 
 
 @pytest.fixture(scope="module")
@@ -201,7 +358,7 @@ def test_head_matches_jax_head(flax_resnet18):
     port.load_state_dict(from_flax(variables["params"], variables["batch_stats"]), strict=True)
     with torch.no_grad():
         t = port(torch.from_numpy(x).permute(0, 3, 1, 2), skip_head=True)
-        got = deconv.apply_pose_resnet_head(t, port)
+        got = deconv.apply_pose_resnet_head(t, port, deconv.pack_pose_resnet_head(port, t.dtype))
         standard = port(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert got.shape == (2, 5, 16, 16) and got.dtype == torch.float32 and got.is_contiguous()
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-4, atol=1e-4)

@@ -375,6 +375,32 @@ def test_load_state_dict_requantizes(weights):
     assert torch.equal(now["deconv_layers.0.ws"], first["deconv_layers.0.ws"] * 0.5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prepacked_head_operands_equal_per_call_packing(weights, dtype):
+    """The K3 operands the engine packs at load, and the K4 operands of
+    quantize_state_dict, equal what the per-call wrappers pack, and are
+    packed again when new weights load."""
+    from multi_view_active_learning_tpu_torch.kernels import deconv
+
+    _, port = _engines(weights, dtype, PALLAS_HEAD=True, INT8_SCORING=True, INT8_DECONV=True)
+    for i, ops in enumerate(port._k3_heads):
+        conv, bn = port.model.deconv_layers[3 * i], port.model.deconv_layers[3 * i + 1]
+        fresh = deconv.pack_k3(conv.weight, *deconv.fold_bn(
+            bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps), port.dtype)
+        assert ops.wpk.dtype == port.dtype
+        for got, ref in zip(ops, fresh):
+            assert torch.equal(got, ref)
+    qp = port._int8_weights
+    for i in range(3):
+        conv, bn = "deconv_layers.%d" % (3 * i), "deconv_layers.%d" % (3 * i + 1)
+        fresh = deconv.pack_k4(qp[conv + ".wq"], qp[conv + ".ws"], qp[bn + ".scale"], qp[bn + ".bias"])
+        assert torch.equal(qp[conv + ".wpk"], fresh.wpk)
+    state = {k: v * 0.5 if k.endswith(".weight") else v for k, v in from_flax(*weights).items()}
+    port.load_state_dict(state)
+    w0 = port.model.deconv_layers[0].weight
+    assert torch.equal(port._k3_heads[0].wpk, deconv.pack_weight(w0.to(port.dtype)))
+
+
 def test_unported_strategy_raises_in_score_step():
     port = Engine(_configure(get_default_configs(), "float32"), device="cpu")
     images, proj, valid, gt = _inputs()

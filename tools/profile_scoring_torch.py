@@ -41,8 +41,13 @@ CLASSES = (
 
 
 def kernel_class(name: str) -> str:
-    if "deconv_mma_kernel" in name or "deconv_f32_kernel" in name:  # csrc/deconv.cu
-        return "K4 fused deconv (int8)" if "true>" in name.replace(" ", "") else "K3 fused deconv"
+    name_ = name.replace(" ", "")
+    # csrc/deconv.cu: deconv_wgmma_kernel<kInt8, Tout>, K4's quantize
+    # pre-pass, and K3's float32 kernel.
+    if "deconv_quantize_kernel" in name_ or "deconv_wgmma_kernel<true" in name_:
+        return "K4 fused deconv (int8)"
+    if "deconv_wgmma_kernel" in name_ or "deconv_f32_kernel" in name_:
+        return "K3 fused deconv"
     for label, keys in CLASSES:
         if any(k in name for k in keys):
             return label
