@@ -5,8 +5,10 @@
 
 Builds the port's CUDA kernels from ``multi_view_active_learning_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card (K1 decode, K2 coreset distance, K3 / K4 fused deconv head at the
-head's three bench-width shapes), checks the card's int8 convolutions
+card (K1 decode at bench width and on its ragged, misaligned and one-row
+shapes; K2 coreset distance on the bench pool, its edge cases and a
+16384-row pool; K3 / K4 fused deconv head at the head's three bench-width
+shapes), checks the card's int8 convolutions
 against the CPU's, PoseResNet-50 against the stored forward goldens and a
 full-width triangulation against ground truth, then drives the active-
 learning scoring pass at the width of ``bench.py`` (B=4 frames, V=31 views,
@@ -48,6 +50,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+SPIN_BATCH_CYCLES = 20_000_000  # about 10 ms: the host enqueues a batch meanwhile (rotated_ms)
+L2_BYTES = 50 * 2**20
 
 # The deconv head's three layers at the main path's width, NHWC
 # (crops, H, W, Cin, Cout): PoseResNet-50's 2048-channel trunk at 8x8.
@@ -154,7 +158,8 @@ def random_state_dict(model, seed):
 def cuda_ms(fn, iters, flush=None, warmup=2):
     """Median device time of fn over `iters` launches, from CUDA events
     around each launch; `flush` (a large buffer) is rewritten before each
-    launch so the inputs come from device memory, not L2."""
+    launch so the inputs come from device memory, not L2.  Every kernel's
+    `ms`."""
     import torch
 
     for _ in range(warmup):
@@ -171,6 +176,51 @@ def cuda_ms(fn, iters, flush=None, warmup=2):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def rotated_ms(fn, inputs, iters=20, reps=3):
+    """Device time per launch of fn(*inputs[i % len(inputs)]) over `iters`
+    back-to-back launches, the median of `reps` batches.  The inputs are
+    copies (`rotation`) that together exceed the L2, so each launch reads
+    its input from device memory, and no line in L2 is dirty.  A batch is
+    queued behind a spin of the card, so neither the host's enqueue time nor
+    a launch's own latency on an idle card enters; CUDA events at its ends.
+    Printed beside K1's and K2's `ms`, whose launches last microseconds."""
+    import torch
+
+    for args in inputs[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_BATCH_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def rotation(*tensors):
+    """Copies of `tensors`, enough that together they hold twice the L2; a
+    view's copy keeps its strides and its offset from an aligned base."""
+    import torch
+
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    out = []
+    for _ in range(max(2, -(-2 * L2_BYTES // nbytes) + 1)):
+        copies = []
+        for t in tensors:
+            span = t.storage_offset() + sum((n - 1) * st for n, st in zip(t.shape, t.stride())) + 1
+            c = torch.as_strided(torch.empty(span, dtype=t.dtype, device=t.device),
+                                 t.shape, t.stride(), t.storage_offset())
+            copies.append(c.copy_(t))
+        out.append(tuple(copies))
+    return out
 
 
 def phase_device():
@@ -191,8 +241,40 @@ def phase_device():
     return smi
 
 
+def _k1_check(decode, x, w, stride, tag):
+    """K1 against its plain version on x: hard argmax and peak bit for bit,
+    soft-argmax within rtol / atol.  Returns (result, max |soft error|)."""
+    import torch
+
+    got = decode.fused_decode(x, w, stride)
+    ref = decode.fused_decode_plain(x, w, stride)
+    torch.cuda.synchronize()
+    hard_err = float(torch.max(torch.abs(got["coords"] - ref[:, 0:2])))
+    peak_err = float(torch.max(torch.abs(got["peak"] - ref[:, 2])))
+    soft_err = torch.abs(got["soft_coords"] - ref[:, 3:5])
+    check(hard_err == 0.0 and peak_err == 0.0, "K1 %s: hard argmax / peak differ from plain" % tag)
+    check(bool(torch.all(soft_err <= K1_SOFT_ATOL + K1_SOFT_RTOL * torch.abs(ref[:, 3:5]))),
+          "K1 %s: soft-argmax outside rtol %g atol %g" % (tag, K1_SOFT_RTOL, K1_SOFT_ATOL))
+    return got, float(soft_err.max())
+
+
+def _k1_plan(decode, x, w):
+    plan = decode.plan_for(x, w)
+    return dict(m=plan.m, grid=plan.grid, warps=plan.warps, bulk=plan.bulk,
+                smem_bytes=plan.smem_bytes)
+
+
 def phase_k1(dev, flush):
-    """K1 against its plain version on the main path's [B*V*K, 64*64] rows."""
+    """K1 against its plain version on the main path's [B*V*K, 64*64] rows
+    (timed; tie rows: a plateau, equal maxima, maxima out of order, and
+    ties across two float4s and across a warp's 128-value span), then on
+    the kernel's other paths: 5x7 maps (140-byte rows), the misaligned view
+    x[:, 1:] of [M, 4097] rows (timed), a single row, twice the bench rows
+    (blocks of two rows: the stage refilled, the mbarrier's parity turning)
+    and 128x128 maps (a row longer than the registers hold: pass 2 reads
+    the stage again; several rows a block; ties past the held part).  `ms`
+    is one launch after an L2 flush (cuda_ms); `rotated_ms` is printed
+    beside it."""
     import torch
     from multi_view_active_learning_tpu_torch.kernels import decode
 
@@ -203,75 +285,173 @@ def phase_k1(dev, flush):
     hm[1, [5, 900, 4000]] = 50.0  # three equal maxima
     hm[2] = -1.0
     hm[2, [4095, 17]] = 2.0
+    hm[3, [4, 3]] = 40.0  # indices 3 and 4 lie in two float4s
+    hm[4, [128, 127]] = 40.0  # 127 ends lane 31's first float4, 128 starts lane 0's second
     x = torch.from_numpy(hm).to(dev)
     stride = 4.0
-    got = decode.fused_decode(x, w, stride)
-    ref = decode.fused_decode_plain(x, w, stride)
-    torch.cuda.synchronize()
-    hard_err = float(torch.max(torch.abs(got["coords"] - ref[:, 0:2])))
-    peak_err = float(torch.max(torch.abs(got["peak"] - ref[:, 2])))
-    soft_err = torch.abs(got["soft_coords"] - ref[:, 3:5])
-    soft_ok = bool(torch.all(soft_err <= K1_SOFT_ATOL + K1_SOFT_RTOL * torch.abs(ref[:, 3:5])))
-    check(hard_err == 0.0 and peak_err == 0.0, "K1 hard argmax / peak differ from plain")
-    check(soft_ok, "K1 soft-argmax outside rtol %g atol %g" % (K1_SOFT_RTOL, K1_SOFT_ATOL))
-    ties = got["coords"][:3].cpu().numpy().tolist()
-    check(ties == [[0.0, 0.0], [20.0, 0.0], [68.0, 0.0]], "K1 tie rows: %s" % ties)
+    got, soft_err = _k1_check(decode, x, w, stride, "bench rows")
+    ties = got["coords"][:5].cpu().numpy().tolist()
+    check(ties == [[0.0, 0.0], [20.0, 0.0], [68.0, 0.0], [12.0, 0.0], [252.0, 4.0]],
+          "K1 tie rows: %s" % ties)
+    plans = {"bench": _k1_plan(decode, x, w)}
+    check(plans["bench"]["bulk"] == 1, "K1 bench rows must take the bulk path")
+
+    wide = torch.from_numpy((rng.normal(size=(m, h * w + 1)) * 3).astype(np.float32)).to(dev)
+    misaligned = wide[:, 1:]
+    ragged = torch.from_numpy((rng.normal(size=(m, 35)) * 3).astype(np.float32)).to(dev)
+    single = x[5:6]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    doubled = torch.cat([x, torch.randn((m, h * w), generator=gen, device=dev) * 3])
+    big_w = 2 * w
+    big = torch.randn((m, big_w * big_w), generator=gen, device=dev) * 3
+    big[0] = 0.0
+    big[1, [9000, 4100, 12000]] = 50.0  # equal maxima, all past the held 4096 values
+    big[2, [4095, 9000]] = 50.0  # one held, one re-read from the stage
+    extra = {}
+    for tag, xe, we in (("hw35", ragged, 7), ("misaligned", misaligned, w), ("m1", single, w),
+                        ("two_rows_a_block", doubled, w), ("hw16384", big, big_w)):
+        got_e, extra[tag] = _k1_check(decode, xe, we, stride, tag)
+        plans[tag] = _k1_plan(decode, xe, we)
+        if tag == "hw16384":
+            ties_big = got_e["coords"][:3].cpu().numpy().tolist()
+            check(ties_big == [[0.0, 0.0], [16.0, 128.0], [508.0, 124.0]],
+                  "K1 hw16384 tie rows: %s" % ties_big)
+    check(plans["hw35"]["bulk"] == 0 and plans["misaligned"]["bulk"] == 0
+          and plans["m1"]["bulk"] == 1, "K1 bulk / ragged choice: %s" % plans)
+    for tag in ("two_rows_a_block", "hw16384"):
+        check(plans[tag]["bulk"] == 1 and plans[tag]["grid"] < plans[tag]["m"],
+              "K1 %s must take the bulk path with several rows a block: %s" % (tag, plans[tag]))
+
     ms = cuda_ms(lambda: decode.fused_decode(x, w, stride), 20, flush)
     plain_ms = cuda_ms(lambda: decode.fused_decode_plain(x, w, stride), 20, flush)
+    ragged_ms = cuda_ms(lambda: decode.fused_decode(misaligned, w, stride), 20, flush)
+    rot = rotation(x)
+    rot_ms = rotated_ms(lambda t: decode.fused_decode(t, w, stride), rot)
+    rot_plain_ms = rotated_ms(lambda t: decode.fused_decode_plain(t, w, stride), rot)
     nbytes = m * h * w * 4 + m * decode.OUT_COLS * 4
     ops = 8 * m * h * w  # max, subtract, exp, add, two FMAs per element
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
     row = dict(name="fused_decode", route="cuda",
                source="multi_view_active_learning_tpu_torch/csrc/decode.cu",
                replaces="multi_view_active_learning_tpu/ops/pallas/decode.py:68",
-               max_abs_err=float(max(hard_err, peak_err, float(soft_err.max()))),
+               max_abs_err=max(soft_err, *extra.values()),
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations",
                library_ms=None)
-    emit("k1", shape=[m, h * w], hard_err=hard_err, peak_err=peak_err,
-         soft_err=float(soft_err.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    emit("k1", shape=[m, h * w], hard_err=0.0, peak_err=0.0, soft_err=soft_err,
+         extra_soft_err=extra, plans=plans, ms=ms, ragged_path_ms=ragged_ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+         rotated_ms=rot_ms, rotated_plain_ms=rot_plain_ms,
+         rotated_share_of_bound=bound_ms / rot_ms, ptxas=_ptxas("decode.cu"))
     return row
 
 
-def phase_k2(dev, flush):
-    """K2 against its plain version on the coreset ranking's pool."""
-    import torch
-    from multi_view_active_learning_tpu_torch.kernels import pairwise
+def _k2_bound_ms(n, d, centers):
+    """(bound ms, "bytes" or "operations") of K2 on a [n, d] pool with
+    `centers` centers: x, mask and output moved once; 2 d + 3 operations
+    per (row, center) pair."""
+    nbytes = n * d * 4 + n + n * 4
+    ops = 2 * n * centers * d + 3 * n * centers
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
-    rng = np.random.default_rng(2)
-    feats = torch.from_numpy(rng.normal(size=(POOL, POOL_DIM)).astype(np.float32)).to(dev)
-    mask = torch.from_numpy(np.arange(POOL) >= POOL - LABELED).to(dev)
+
+def _k2_check(pairwise, feats, mask, tag):
+    """K2 against its plain version within K2_RTOL and 8 ulps of the largest
+    squared norm (after the sqrt); labeled points at exactly 0."""
+    import torch
+
     got = pairwise.min_distance_to_centers(feats, mask)
     ref = pairwise.min_distance_to_centers_plain(feats, mask)
-    none = pairwise.min_distance_to_centers(feats, torch.zeros_like(mask))
-    sparse = torch.zeros_like(mask)
-    sparse[::97] = True  # centers scattered over many tiles
-    got_s = pairwise.min_distance_to_centers(feats, sparse)
-    ref_s = pairwise.min_distance_to_centers_plain(feats, sparse)
     torch.cuda.synchronize()
     atol = float(torch.sqrt(8 * 2.0**-23 * torch.max(torch.sum(feats * feats, dim=-1))))
-    err = float(torch.max(torch.abs(got - ref)))
+    err = float(torch.max(torch.abs(got - ref))) if bool(mask.any()) else 0.0
     check(bool(torch.allclose(got, ref, rtol=K2_RTOL, atol=atol)),
-          "K2 differs from plain: %g (atol %g)" % (err, atol))
-    check(bool(torch.allclose(got_s, ref_s, rtol=K2_RTOL, atol=atol)),
-          "K2 differs on scattered centers")
+          "K2 %s differs from plain: %g (atol %g)" % (tag, err, atol))
+    if bool(mask.any()):
+        check(float(got[mask].max()) == 0.0, "K2 %s: a labeled point is off its own center" % tag)
+    return got, err
+
+
+def phase_k2(dev, flush):
+    """K2 against its plain version on the coreset ranking's pool (timed),
+    then: no centers (inf), scattered centers, n = 2047, d = 1 and d = 512,
+    every row labeled, one center (all centers in one rank's slice), the
+    centers in one block of n / cluster rows (what a split by row range
+    would give one rank), and a 16384 x 57 pool with 2048 contiguous
+    labeled rows (timed, with its share of the bound).  `ms` is one launch
+    after an L2 flush (cuda_ms); `rotated_ms` is printed beside it."""
+    import torch
+    from multi_view_active_learning_tpu_torch.kernels import _build, pairwise
+
+    rng = np.random.default_rng(2)
+    sms = _build.sm_count(dev)
+    feats = torch.from_numpy(rng.normal(size=(POOL, POOL_DIM)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(np.arange(POOL) >= POOL - LABELED).to(dev)
+    got, err = _k2_check(pairwise, feats, mask, "bench pool")
+    none = pairwise.min_distance_to_centers(feats, torch.zeros_like(mask))
+    torch.cuda.synchronize()
     check(bool(torch.all(torch.isinf(none))), "K2 without centers must give inf")
+    plan = pairwise.launch_plan(POOL, POOL_DIM, sms)
+    sparse = torch.zeros_like(mask)
+    sparse[::97] = True  # centers scattered over many tiles
+    one = torch.zeros_like(mask)
+    one[777] = True
+    block = torch.zeros_like(mask)
+    block[:POOL // plan.cluster] = True
+    cases = {
+        "scattered": (feats, sparse),
+        "n2047": (feats[:POOL - 1], mask[:POOL - 1]),
+        "all_labeled": (feats, torch.ones_like(mask)),
+        "one_center": (feats, one),
+        "one_row_range": (feats, block),
+    }
+    cases["d1"] = (torch.from_numpy(rng.normal(size=(POOL, 1)).astype(np.float32)).to(dev), mask)
+    # d = 512 on a grid of quarters in [-2, 2]: every square, product and sum
+    # is exact in float32, so the plain version's own rounding, which grows
+    # with d past the 8-ulp bar, does not enter the comparison.
+    quarters = rng.integers(-8, 9, size=(POOL, 512)).astype(np.float32) / 4
+    cases["d512"] = (torch.from_numpy(quarters).to(dev), mask)
+    errs = {}
+    for tag, (f, mk) in cases.items():
+        _, errs[tag] = _k2_check(pairwise, f, mk, tag)
+
     ms = cuda_ms(lambda: pairwise.min_distance_to_centers(feats, mask), 50, flush)
     plain_ms = cuda_ms(lambda: pairwise.min_distance_to_centers_plain(feats, mask), 50, flush)
+    rot = rotation(feats, mask)
+    rot_ms = rotated_ms(pairwise.min_distance_to_centers, rot, iters=50)
     centers = int(mask.sum())
-    nbytes = POOL * POOL_DIM * 4 + POOL + POOL * 4
-    ops = 2 * POOL * centers * POOL_DIM + 3 * POOL * centers
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    bound_ms, bound_by = _k2_bound_ms(POOL, POOL_DIM, centers)
+
+    big_n, big_labeled = 16384, 2048
+    big = torch.from_numpy(rng.normal(size=(big_n, POOL_DIM)).astype(np.float32)).to(dev)
+    big_mask = torch.from_numpy(np.arange(big_n) >= big_n - big_labeled).to(dev)
+    _, errs["n16384"] = _k2_check(pairwise, big, big_mask, "16384 pool")
+    big_ms = cuda_ms(lambda: pairwise.min_distance_to_centers(big, big_mask), 20, flush)
+    big_plain_ms = cuda_ms(lambda: pairwise.min_distance_to_centers_plain(big, big_mask), 5, flush)
+    big_rot_ms = rotated_ms(pairwise.min_distance_to_centers, rotation(big, big_mask))
+    big_bound_ms, big_bound_by = _k2_bound_ms(big_n, POOL_DIM, big_labeled)
+    big_plan = pairwise.launch_plan(big_n, POOL_DIM, sms)
+
     row = dict(name="min_distance_to_centers", route="cuda",
                source="multi_view_active_learning_tpu_torch/csrc/pairwise.cu",
                replaces="multi_view_active_learning_tpu/ops/pallas/pairwise.py:63",
-               max_abs_err=max(err, float(torch.max(torch.abs(got_s - ref_s)))),
-               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations",
-               library_ms=None)
+               max_abs_err=max(err, *errs.values()),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     emit("k2", shape=[POOL, POOL_DIM], centers=centers, max_abs_err=row["max_abs_err"],
-         rtol=K2_RTOL, atol=atol, labeled_self_distance=float(got[-LABELED:].max()),
-         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+         case_errs=errs, rtol=K2_RTOL, labeled_self_distance=float(got[-LABELED:].max()),
+         cluster=dict(rows_per_cluster=pairwise.ROWS, row_blocks=plan.row_blocks,
+                      cluster=plan.cluster, grid=plan.grid, center_tile=plan.center_tile,
+                      smem_bytes=plan.smem_bytes),
+         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+         rotated_ms=rot_ms, rotated_share_of_bound=bound_ms / rot_ms,
+         large=dict(shape=[big_n, POOL_DIM], centers=big_labeled, ms=big_ms,
+                    plain_ms=big_plain_ms, bound_ms=big_bound_ms, bound_by=big_bound_by,
+                    share_of_bound=big_bound_ms / big_ms, rotated_ms=big_rot_ms,
+                    cluster=dict(row_blocks=big_plan.row_blocks, cluster=big_plan.cluster,
+                                 grid=big_plan.grid, center_tile=big_plan.center_tile,
+                                 smem_bytes=big_plan.smem_bytes)),
+         ptxas=_ptxas("pairwise.cu"))
     return row
 
 
@@ -754,8 +934,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-    rows = [phase_k1(dev, flush), phase_k2(dev, flush), phase_k3(dev, flush),
-            phase_k4(dev, flush)]
+    rows = [phase_k1(dev, flush), phase_k2(dev, flush), phase_k3(dev, flush), phase_k4(dev, flush)]
     phase_int8_conv(dev)
     phase_model(dev)
     cfg = get_default_configs()

@@ -1,4 +1,5 @@
-// K2: min distance from every pool row to the masked centers.
+// K2: min distance from every pool row to the masked centers, with the
+// centers split across a thread-block cluster.
 //
 // Replaces the TPU kernel ops/pallas/pairwise.py::min_distance_to_centers
 // (_min_dist_kernel) of the JAX package: for every row x_i of a [n, d]
@@ -10,113 +11,322 @@
 //
 // Bound on an H100: operations.  The coreset ranking's 2048 x 57 pool with
 // 200 centers needs 2*n*|centers|*d = 47 MFLOP (0.7 us at the 67 TFLOP/s
-// FP32 rate) against 0.47 MB of input; at this size launch overhead
-// dominates.  The dot products run as IEEE FP32 FMAs on the CUDA cores, not
-// TF32 tensor cores: the expanded form cancels, and its error must stay at
-// the FP32 floor the tests budget for.
-// Design: a block owns kRows pool rows, one per thread, staged once in
-// shared memory transposed to [d][kRows] (conflict-free reads).  It walks
-// the centers in tiles of kTile rows staged in shared memory, skips a tile
-// with no center set, and keeps the running masked min in a register; every
-// thread reads the same center value at once (a shared-memory broadcast).
-// The square root is taken in the kernel.  Simple first: no cp.async / TMA
-// staging and no tensor cores yet.
+// FP32 rate) against 0.47 MB of input, so at this size the floor is one
+// launch and a few memory round trips; at 10^4-10^5 rows the products rule.
+// The dot products run as IEEE FP32 FMAs on the CUDA cores, not TF32 tensor
+// cores: the expanded form cancels, and its error must stay at the FP32
+// floor the tests budget for.  |x|^2, |c|^2 and x.c are each an fmaf chain
+// over k ascending, so a labeled point's distance to itself is exactly 0.
+//
+// Design (launch geometry: kernels/pairwise.py::launch_plan):
+//   * A cluster of `cluster` CTAs owns kRows pool rows (one per lane, staged
+//     once in shared memory transposed to [d][kRows]); the grid is
+//     row_blocks x cluster CTAs, chosen so that small pools still fill the
+//     SMs.
+//   * Each CTA compacts the mask itself, `chunk` entries at a time: 16-byte
+//     vector loads, __popc of each thread's set bytes and a shuffle prefix
+//     sum give the chunk's center indices in order in shared memory.  An
+//     empty range costs one vector load per 16 entries and no center work.
+//   * Rank r of the cluster takes the r-th of `cluster` equal slices of
+//     each chunk's compacted list (kernels/pairwise.py::rank_slice) and
+//     stages it in tiles of `center_tile` centers, transposed to [d][tile],
+//     with 4-byte cp.async, double-buffered: the next tile lands while the
+//     current one is reduced.  Each warp takes groups of kGroup centers; a
+//     lane's row against a group is kGroup independent FMA chains fed, per
+//     k, by one conflict-free load of x and kGroup / 4 broadcast float4
+//     loads of centers: 5 shared-memory wavefronts per 16 FMAs.  The 16
+//     lanes j < kGroup first run the group's |c|^2 chains.
+//   * The rows are staged with cp.async while the mask is compacted, and
+//     waited for with the first center tile.
+//   * The four warps' minima meet in shared memory, the cluster's through
+//     distributed shared memory: each rank writes its partial minima into
+//     rank 0's shared memory (map_shared_rank), and after one cluster.sync()
+//     rank 0 takes the min and the sqrt and stores.  One launch: no atomics,
+//     no memset, no second pass.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 64;  // pool rows per block, one per thread
-constexpr int kTile = 32;  // centers per shared-memory tile
+// kernels/pairwise.py::DistancePlan, field for field (the wrapper passes it
+// flattened to int64s; the entry point checks the length).
+struct Plan {
+  long long n, d, row_blocks, cluster, grid, chunk, center_tile, tile_stride, smem_bytes;
+};
 
-__global__ void __launch_bounds__(kRows)
+struct Args {
+  int n, d, cluster, chunk, tile, ts;  // ts: floats between k-rows of a center tile
+};
+
+constexpr int kRows = 32;  // pool rows per cluster, one per lane (kernels/pairwise.py ROWS)
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroup = 16;  // centers per warp step (kernels/pairwise.py GROUP)
+constexpr int kScan = kThreads * 16;  // mask entries per compaction pass
+constexpr int kMaxCluster = 8;  // the portable cluster size (kernels/pairwise.py MAX_CLUSTER)
+constexpr int kMaxCards = 64;  // cards whose shared-memory opt-in is remembered
+constexpr int kSmemBlock = 232448;  // shared memory one block may use (kernels/pairwise.py SMEM_BLOCK)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Bits 0-3: which of the four bytes of w are nonzero.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return (w & 0xffu ? 1u : 0u) | (w & 0xff00u ? 2u : 0u) | (w & 0xff0000u ? 4u : 0u) |
+         (w & 0xff000000u ? 8u : 0u);
+}
+
+// Element i = j d + k of a [rows][d] block, walked by a thread in steps of
+// kThreads without a division per element: (j, k) advance by constant steps.
+struct Walk {
+  int j, k, dj, dk;
+};
+
+__device__ __forceinline__ Walk make_walk(int d) {
+  return Walk{static_cast<int>(threadIdx.x) / d, static_cast<int>(threadIdx.x) % d, kThreads / d,
+              kThreads % d};
+}
+
+__device__ __forceinline__ void advance(Walk& w, int d) {
+  w.j += w.dj;
+  w.k += w.dk;
+  if (w.k >= d) {
+    w.k -= d;
+    ++w.j;
+  }
+}
+
+// Stage centers list[lo, lo + cnt) into a [d][ts] tile.
+__device__ __forceinline__ void stage_tile(float* tile, const float* __restrict__ x,
+                                           const int* list, int lo, int cnt, const Args& a) {
+  const int d = a.d;
+  for (Walk w = make_walk(d); w.j < cnt; advance(w, d)) {
+    cp_async4(tile + w.k * a.ts + w.j, x + static_cast<size_t>(list[lo + w.j]) * d + w.k);
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kThreads)
 min_distance_kernel(const float* __restrict__ x, const unsigned char* __restrict__ mask,
-                    float* __restrict__ out, int n, int d) {
-  extern __shared__ float smem[];
-  float* xs = smem;                  // [d][kRows]
-  float* cs = xs + d * kRows;        // [kTile][d]
-  float* csq = cs + kTile * d;       // [kTile]
-  int* cmask = reinterpret_cast<int*>(csq + kTile);  // [kTile]
+                    float* __restrict__ out, Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = (blockIdx.x / a.cluster) * kRows;
+  const int n = a.n, d = a.d;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // A CTA may write a peer's shared memory only once the peer runs: arrive
+  // here, wait just before the write (by then every peer has long started).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                              // [d][kRows]
+  float* tiles = xs + d * kRows;                 // 2 x [d][ts]
+  float* part = tiles + 2 * d * a.ts;            // [kWarps][kRows]
+  float* gather = part + kWarps * kRows;         // [cluster][kRows]: rank 0's, each rank's min
+  int* wsum = reinterpret_cast<int*>(gather + kMaxCluster * kRows);  // [kWarps]
+  int* list = wsum + kWarps;                     // [chunk]
 
-  // Stage this block's rows: the global reads walk one contiguous range.
-  for (int i = tid; i < kRows * d; i += kRows) {
-    const int r = i / d;
-    const int k = i - r * d;
-    const int gr = row0 + r;
-    xs[k * kRows + r] = gr < n ? x[static_cast<size_t>(gr) * d + k] : 0.f;
+  // This cluster's rows; rows past n are zeros and never stored.
+  for (Walk w = make_walk(d); w.j < kRows; advance(w, d)) {
+    if (row0 + w.j < n) {
+      cp_async4(xs + w.k * kRows + w.j, x + static_cast<size_t>(row0 + w.j) * d + w.k);
+    } else {
+      xs[w.k * kRows + w.j] = 0.f;
+    }
   }
+  cp_async_commit();  // waited for with the first center tile, or at the end
+
+  const bool vec = (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  float best = INFINITY, xsq = 0.f;
+  bool have_xsq = false;
+  for (int c0 = 0; c0 < n; c0 += a.chunk) {
+    const int c1 = min(n, c0 + a.chunk);
+    // Compact the chunk's set entries into list[0, count), in index order.
+    int count = 0;
+    for (int p0 = c0; p0 < c1; p0 += kScan) {
+      const int base = p0 + tid * 16;
+      unsigned bits = 0;
+      if (vec && base + 16 <= c1) {
+        const uint4 v = *reinterpret_cast<const uint4*>(mask + base);
+        bits = nonzero_bytes(v.x) | nonzero_bytes(v.y) << 4 | nonzero_bytes(v.z) << 8 |
+               nonzero_bytes(v.w) << 12;
+      } else {
+        for (int j = 0; j < 16; ++j) {
+          if (base + j < c1 && mask[base + j]) bits |= 1u << j;
+        }
+      }
+      const int mine = __popc(bits);
+      int incl = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      if (lane == 31) wsum[warp] = incl;
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        before += w < warp ? wsum[w] : 0;
+        total += wsum[w];
+      }
+      int pos = count + before + incl - mine;
+      while (bits) {
+        list[pos++] = base + __ffs(bits) - 1;
+        bits &= bits - 1;
+      }
+      count += total;
+      __syncthreads();  // wsum is rewritten by the next pass; list is complete
+    }
+
+    // This rank's slice of the chunk's centers, in tiles.
+    const int lo = static_cast<int>(static_cast<long long>(count) * rank / a.cluster);
+    const int hi = static_cast<int>(static_cast<long long>(count) * (rank + 1) / a.cluster);
+    const int ntiles = (hi - lo + a.tile - 1) / a.tile;
+    if (ntiles > 0) stage_tile(tiles, x, list, lo, min(a.tile, hi - lo), a);
+    for (int t = 0; t < ntiles; ++t) {
+      const int t_lo = lo + t * a.tile;
+      const int cnt = min(a.tile, hi - t_lo);
+      float* tile = tiles + (t & 1) * d * a.ts;
+      if (t + 1 < ntiles) {
+        const int n_lo = t_lo + a.tile;
+        stage_tile(tiles + ((t + 1) & 1) * d * a.ts, x, list, n_lo, min(a.tile, hi - n_lo), a);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // tile t (and before it the rows) is in shared memory
+      if (!have_xsq) {
+#pragma unroll 4
+        for (int k = 0; k < d; ++k) {
+          const float v = xs[k * kRows + lane];
+          xsq = fmaf(v, v, xsq);
+        }
+        have_xsq = true;
+      }
+      for (int g = warp * kGroup; g < cnt; g += kWarps * kGroup) {
+        // Lane j < kGroup: |c|^2 of center g + j, the same fmaf chain as |x|^2.
+        float cs = 0.f;
+        if (lane < kGroup && g + lane < cnt) {
+#pragma unroll 4
+          for (int k = 0; k < d; ++k) {
+            const float v = tile[k * a.ts + g + lane];
+            cs = fmaf(v, v, cs);
+          }
+        }
+        float acc[kGroup];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < d; ++k) {
+          const float xv = xs[k * kRows + lane];
+          const float4* c4 = reinterpret_cast<const float4*>(tile + k * a.ts + g);
+#pragma unroll
+          for (int v = 0; v < kGroup / 4; ++v) {
+            const float4 c = c4[v];
+            acc[4 * v] = fmaf(xv, c.x, acc[4 * v]);
+            acc[4 * v + 1] = fmaf(xv, c.y, acc[4 * v + 1]);
+            acc[4 * v + 2] = fmaf(xv, c.z, acc[4 * v + 2]);
+            acc[4 * v + 3] = fmaf(xv, c.w, acc[4 * v + 3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          const float cj = __shfl_sync(0xffffffffu, cs, j);
+          if (g + j < cnt) best = fminf(best, fmaxf((xsq + cj) - 2.f * acc[j], 0.f));
+        }
+      }
+      __syncthreads();  // tile t's buffer is free for tile t + 2
+    }
+  }
+
+  // The CTA's min over its warps into rank 0's shared memory (through
+  // distributed shared memory from the other ranks), then rank 0's min over
+  // the ranks after one cluster barrier.
+  cp_async_wait<0>();
+  part[warp * kRows + lane] = best;
   __syncthreads();
-  float xsq = 0.f;
-  for (int k = 0; k < d; ++k) {
-    const float v = xs[k * kRows + tid];
-    xsq = fmaf(v, v, xsq);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0) {
+    float m = part[lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) m = fminf(m, part[w * kRows + lane]);
+    cluster.map_shared_rank(gather, 0)[rank * kRows + lane] = m;
   }
-
-  float best = INFINITY;
-  for (int c0 = 0; c0 < n; c0 += kTile) {
-    int set = 0;
-    if (tid < kTile) {
-      const int c = c0 + tid;
-      set = (c < n && mask[c]) ? 1 : 0;
-      cmask[tid] = set;
-    }
-    if (!__syncthreads_or(set)) continue;  // no center in this tile
-
-    for (int i = tid; i < kTile * d; i += kRows) {
-      const int j = i / d;
-      cs[i] = c0 + j < n ? x[static_cast<size_t>(c0) * d + i] : 0.f;
-    }
-    __syncthreads();
-    if (tid < kTile) {
-      float s = 0.f;
-      for (int k = 0; k < d; ++k) {
-        const float v = cs[tid * d + k];
-        s = fmaf(v, v, s);
-      }
-      csq[tid] = s;
-    }
-    __syncthreads();
-
-    float acc[kTile];
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[j] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float xv = xs[k * kRows + tid];
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) acc[j] = fmaf(xv, cs[j * d + k], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (cmask[j]) {
-        const float d2 = fmaxf((xsq + csq[j]) - 2.f * acc[j], 0.f);
-        best = fminf(best, d2);
-      }
-    }
-    __syncthreads();  // the next tile overwrites cs, csq and cmask
+  cluster.sync();  // the ranks' minima are in rank 0's shared memory
+  if (rank == 0 && warp == 0) {
+    float m = gather[lane];
+    for (int r = 1; r < a.cluster; ++r) m = fminf(m, gather[r * kRows + lane]);
+    if (row0 + lane < n) out[row0 + lane] = sqrtf(m);
   }
-  if (row0 + tid < n) out[row0 + tid] = sqrtf(best);
 }
 
 }  // namespace
 
 extern "C" int mval_min_distance_to_centers(const void* features, const void* center_mask,
-                                            void* out, int n, int d, void* stream) {
-  const size_t smem = (static_cast<size_t>(kRows + kTile) * d + 2 * kTile) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        min_distance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+                                            void* out, const long long* plan_flat, int plan_len,
+                                            void* stream) {
+  if (plan_len != static_cast<int>(sizeof(Plan) / sizeof(long long))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Plan p;
+  memcpy(&p, plan_flat, sizeof(Plan));
+  if (p.cluster < 1 || p.cluster > kMaxCluster || p.grid != p.row_blocks * p.cluster || p.d < 1 ||
+      p.center_tile < kGroup || p.center_tile % kGroup || p.tile_stride % 4 ||
+      p.chunk % kScan) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p.n <= 0) return static_cast<int>(cudaGetLastError());
+  if (p.smem_bytes > kSmemBlock) return static_cast<int>(cudaErrorInvalidValue);
+  // A block's whole shared memory, once per card (the attribute is the
+  // current card's).
+  static bool opted_in[kMaxCards];
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (card >= kMaxCards || !opted_in[card]) {
+    err = cudaFuncSetAttribute(min_distance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBlock);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (card < kMaxCards) opted_in[card] = true;
   }
-  if (n > 0) {
-    const int blocks = (n + kRows - 1) / kRows;
-    min_distance_kernel<<<blocks, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(features), static_cast<const unsigned char*>(center_mask),
-        static_cast<float*>(out), n, d);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.grid));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem_bytes);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(p.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const Args a{static_cast<int>(p.n), static_cast<int>(p.d), static_cast<int>(p.cluster),
+               static_cast<int>(p.chunk), static_cast<int>(p.center_tile),
+               static_cast<int>(p.tile_stride)};
+  err = cudaLaunchKernelEx(&cfg, min_distance_kernel, static_cast<const float*>(features),
+                           static_cast<const unsigned char*>(center_mask),
+                           static_cast<float*>(out), a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

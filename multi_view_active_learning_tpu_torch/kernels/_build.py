@@ -23,6 +23,8 @@ import tempfile
 import time
 from typing import Dict, List, Tuple
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -35,12 +37,12 @@ NVCC_FLAGS = [
 # C entry points: name -> argument types.  Pointers and the stream are
 # c_void_p (a Python int would otherwise be cut to 32 bits).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PLAN = ctypes.POINTER(ctypes.c_longlong)  # kernels/deconv.py::tile_plan, flattened
+_PLAN = ctypes.POINTER(ctypes.c_longlong)  # a kernel's launch plan, flattened
 SIGNATURES: Dict[str, List] = {
-    # (heatmaps, out, m, hw, width, stride, stream)
-    "mval_fused_decode": [_P, _P, _I, _I, _I, _F, _P],
-    # (features, center_mask, out, n, d, stream)
-    "mval_min_distance_to_centers": [_P, _P, _P, _I, _I, _P],
+    # (heatmaps, out, plan, plan length, stride, stream): kernels/decode.py::launch_plan
+    "mval_fused_decode": [_P, _P, _PLAN, _I, _F, _P],
+    # (features, center_mask, out, plan, plan length, stream): kernels/pairwise.py::launch_plan
+    "mval_min_distance_to_centers": [_P, _P, _P, _PLAN, _I, _P],
     # (x, packed weights, scale, bias, out, plan, plan length, is_bf16, stream)
     "mval_fused_deconv_bn_relu": [_P, _P, _P, _P, _P, _PLAN, _I, _I, _P],
     # (x, s8 scratch, packed s8 weights, sx, ws, scale, bias, out, plan, plan length,
@@ -126,3 +128,14 @@ def check(code: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by an entry point."""
     if code != 0:
         raise RuntimeError("CUDA kernel %s failed to launch: cudaError_t %d" % (name, code))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of the card `device` names (the current card for a bare "cuda"):
+    the launch plans size their grids from it."""
+    return _sm_count_of(torch.cuda.current_device() if device.index is None else device.index)

@@ -6,19 +6,88 @@ package, the initial sweep of k-center-greedy coreset selection.  Held to
 the plain version's semantics (ops/coreset.py::_min_dist_to_centers of the
 JAX package): +inf where no center is set.
 
-A CPU tensor goes to ``min_distance_to_centers_plain``; a CUDA tensor
-launches the kernel or raises.  ``min_distance_to_centers.launches`` counts
-kernel launches.
+``launch_plan`` is the kernel's launch geometry, computed here and passed
+to C: clusters of ``cluster`` CTAs, each cluster owning ROWS pool rows and
+each rank a ``rank_slice`` of every compacted mask chunk, staged in tiles
+of ``center_tile`` centers.  A CPU tensor goes to
+``min_distance_to_centers_plain``; a CUDA tensor launches the kernel or
+raises (a cluster launch the driver refuses raises too).
+``min_distance_to_centers.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _build
 
-CHUNK = 1024
-MAX_DIM = 512  # the kernel stages a block's rows and one center tile in shared memory
+CHUNK = 1024  # centers per step of the plain version
+MAX_DIM = 512  # the widest feature row the kernel's plan admits
+ROWS = 32  # csrc/pairwise.cu kRows: pool rows per cluster, one per lane
+WARPS = 4  # csrc/pairwise.cu kWarps
+GROUP = 16  # csrc/pairwise.cu kGroup: centers per warp step
+SCAN = WARPS * 32 * 16  # mask entries per compaction pass (16 per thread)
+MASK_CHUNK = SCAN  # mask entries compacted at a time (a small list leaves room for more CTAs an SM)
+MAX_TILE = 64  # centers per staged tile
+MAX_CLUSTER = 8  # the portable cluster size
+CTAS_PER_SM = 2  # a small pool is split across the cluster until the grid fills this
+SMEM_BLOCK = 232448  # shared memory one block may use on Hopper (227 KB)
+
+
+class DistancePlan(NamedTuple):
+    """csrc/pairwise.cu's ``Plan``, field for field (flattened to int64 in
+    this order)."""
+    n: int
+    d: int
+    row_blocks: int  # clusters, ROWS pool rows each
+    cluster: int  # CTAs per cluster: the ranks that split the centers
+    grid: int  # row_blocks * cluster CTAs
+    chunk: int  # mask entries compacted at a time, a multiple of SCAN
+    center_tile: int  # centers staged at a time, a multiple of GROUP
+    tile_stride: int  # floats between the k-rows of a staged [d][tile] tile
+    smem_bytes: int
+
+
+PLAN_LEN = len(DistancePlan._fields)
+
+
+def _smem_bytes(d: int, chunk: int, tile: int) -> int:
+    """Dynamic shared memory of csrc/pairwise.cu: the rows [d][ROWS], two
+    center tiles [d][tile + 4], the warps' partial minima, the ranks'
+    minima (rank 0's), the scan's warp sums and the compacted list."""
+    floats = d * ROWS + 2 * d * (tile + 4) + WARPS * ROWS + MAX_CLUSTER * ROWS
+    return 4 * (floats + WARPS + chunk)
+
+
+def launch_plan(n: int, d: int, sm_count: int) -> DistancePlan:
+    """K2's launch geometry for a [n, d] pool on a card of ``sm_count`` SMs.
+
+    Clusters of ROWS rows; a pool of few row blocks is split across up to
+    MAX_CLUSTER ranks (powers of two) until the grid holds about
+    CTAS_PER_SM CTAs per SM.  The center tile is the largest multiple of
+    GROUP up to MAX_TILE whose shared memory fits a block."""
+    row_blocks = -(-n // ROWS)
+    cluster = 1
+    while cluster < MAX_CLUSTER and row_blocks * cluster * 2 <= CTAS_PER_SM * sm_count:
+        cluster *= 2
+    chunk = min(MASK_CHUNK, max(SCAN, -(-n // SCAN) * SCAN))
+    tile = MAX_TILE
+    while tile > GROUP and _smem_bytes(d, chunk, tile) > SMEM_BLOCK:
+        tile -= GROUP
+    smem = _smem_bytes(d, chunk, tile)
+    if smem > SMEM_BLOCK:
+        raise ValueError("feature width %d needs %d bytes of shared memory" % (d, smem))
+    return DistancePlan(n, d, row_blocks, cluster, row_blocks * cluster, chunk, tile,
+                        tile + 4, smem)
+
+
+def rank_slice(count: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """[lo, hi) of a chunk's ``count`` compacted centers that cluster rank
+    ``rank`` takes (csrc/pairwise.cu): equal contiguous slices."""
+    return count * rank // cluster, count * (rank + 1) // cluster
 
 
 def min_distance_to_centers_plain(
@@ -67,12 +136,15 @@ def min_distance_to_centers(
         raise ValueError("feature width %d outside the kernel's 1..%d" % (d, MAX_DIM))
     if not (features.is_contiguous() and center_mask.is_contiguous()):
         raise ValueError("min_distance_to_centers needs contiguous inputs")
+    plan = launch_plan(n, d, _build.sm_count(device))
+    plan_arg = (ctypes.c_longlong * PLAN_LEN)(*plan)
     out = torch.empty((n,), dtype=torch.float32, device=device)
     lib = _build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.mval_min_distance_to_centers(
-            features.data_ptr(), center_mask.data_ptr(), out.data_ptr(), n, d, stream
+            features.data_ptr(), center_mask.data_ptr(), out.data_ptr(), plan_arg, PLAN_LEN,
+            stream,
         )
     _build.check(code, "mval_min_distance_to_centers")
     min_distance_to_centers.launches += 1

@@ -3,7 +3,15 @@
 Tolerance of the min-distance sweep: rtol=1e-3, atol=5e-3, as
 tests/test_pallas_kernels.py holds the Pallas kernel -- a labeled point's
 zero distance to itself sits on the float32 cancellation floor of the
-expanded ||x||^2 + ||c||^2 - 2 x.c form (sqrt(eps) ~ 4e-3)."""
+expanded ||x||^2 + ||c||^2 - 2 x.c form (sqrt(eps) ~ 4e-3).
+
+The CUDA kernel cannot run here, so its launch plan is tested directly and
+a Python model of its work split (clusters of rows, mask chunks compacted
+in order, each rank's slice in tiles of warp groups, the cluster min) is
+held to the plain version."""
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +21,7 @@ import torch
 from multi_view_active_learning_tpu.ops import coreset as jax_coreset
 from multi_view_active_learning_tpu.ops.pallas import pairwise as jax_pairwise
 from multi_view_active_learning_tpu_torch import kernels
-from multi_view_active_learning_tpu_torch.kernels import pairwise
+from multi_view_active_learning_tpu_torch.kernels import _build, pairwise
 from multi_view_active_learning_tpu_torch.ops import coreset
 
 TOL = dict(rtol=1e-3, atol=5e-3)
@@ -105,3 +113,130 @@ def test_launch_counter_and_input_checks():
     with pytest.raises(RuntimeError):
         pairwise.min_distance_to_centers(
             torch.zeros((4, 3), device="meta"), torch.zeros(4, dtype=torch.bool, device="meta"))
+
+
+# -- the kernel's launch plan and a model of its work split ------------------
+
+SM = 132  # an H100 SXM
+
+
+def _fma_chain(a, b):
+    """sum_k a[..., k] * b[..., k] accumulated over k ascending, in float64
+    (csrc/pairwise.cu's fmaf chains, without their float32 rounding)."""
+    acc = np.zeros(np.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    for k in range(a.shape[-1]):
+        acc = acc + a[..., k].astype(np.float64) * b[..., k]
+    return acc
+
+
+def _model_kernel(feats, mask, plan):
+    """csrc/pairwise.cu's split of the work: returns the distances and, per
+    (row block, rank), the centers that rank reduced."""
+    n = feats.shape[0]
+    out = np.full(n, np.inf)
+    visited = {}
+    for rb in range(plan.row_blocks):
+        rows = feats[rb * pairwise.ROWS:(rb + 1) * pairwise.ROWS]
+        xsq = _fma_chain(rows, rows)
+        cta_min = np.full((plan.cluster, rows.shape[0]), np.inf)
+        for rank in range(plan.cluster):
+            seen = visited.setdefault((rb, rank), [])
+            for c0 in range(0, n, plan.chunk):
+                listed = c0 + np.flatnonzero(mask[c0:c0 + plan.chunk])  # in index order
+                lo, hi = pairwise.rank_slice(len(listed), plan.cluster, rank)
+                for t_lo in range(lo, hi, plan.center_tile):
+                    cnt = min(plan.center_tile, hi - t_lo)
+                    for warp in range(pairwise.WARPS):
+                        for g in range(warp * pairwise.GROUP, cnt, pairwise.WARPS * pairwise.GROUP):
+                            group = listed[t_lo + g:t_lo + min(g + pairwise.GROUP, cnt)]
+                            seen.extend(group.tolist())
+                            c = feats[group]
+                            d2 = (xsq[:, None] + _fma_chain(c, c)[None, :]
+                                  - 2.0 * _fma_chain(rows[:, None, :], c[None, :, :]))
+                            cta_min[rank] = np.minimum(cta_min[rank],
+                                                       np.maximum(d2, 0.0).min(axis=1))
+        out[rb * pairwise.ROWS:(rb + 1) * pairwise.ROWS] = np.sqrt(cta_min.min(axis=0))
+    return out.astype(np.float32), visited
+
+
+MODEL_CASES = {
+    "tail": (2047, 57, 132, lambda m: m.__setitem__(slice(1847, None), True)),  # ragged n
+    "scattered": (700, 16, SM, lambda m: m.__setitem__(slice(3, None, 37), True)),
+    "single": (300, 9, SM, lambda m: m.__setitem__(123, True)),
+    "all": (200, 5, SM, lambda m: m.__setitem__(slice(None), True)),
+    "none": (130, 7, SM, lambda m: None),
+    "one_rank_range": (512, 12, SM, lambda m: m.__setitem__(slice(0, 40), True)),
+    "fewer_than_ranks": (150, 3, SM, lambda m: m.__setitem__([7, 90], True)),
+    "d1": (260, 1, SM, lambda m: m.__setitem__(slice(None, None, 5), True)),
+    "d512": (70, 512, SM, lambda m: m.__setitem__(slice(0, 50), True)),
+    "chunks": (20000, 2, 8, lambda m: m.__setitem__(slice(8000, 8400), True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_kernel_model_matches_plain(case):
+    n, d, sm, fill = MODEL_CASES[case]
+    feats, mask = _pool(40 + n, n, d, fill)
+    plan = pairwise.launch_plan(n, d, sm)
+    got, visited = _model_kernel(feats, mask, plan)
+    ref = pairwise.min_distance_to_centers_plain(torch.from_numpy(feats), torch.from_numpy(mask))
+    # The plain version's cancellation floor grows with |x|^2 (about 500 at
+    # d = 512): atol is 8 ulps of the largest squared norm after the sqrt,
+    # chip_smoke.py's bar for the kernel, where that exceeds TOL's.
+    atol = max(TOL["atol"], float(np.sqrt(8 * 2.0**-23 * (feats.astype(np.float64) ** 2).sum(1).max())))
+    np.testing.assert_allclose(got, ref.numpy(), rtol=TOL["rtol"], atol=atol)
+    if not mask.any():
+        assert np.isinf(got).all()
+    assert (got[mask] == 0).all()  # the same chains for |x|^2, |c|^2 and x.c
+    centers = np.flatnonzero(mask).tolist()
+    for rb in range(plan.row_blocks):
+        per_rank = [visited[(rb, r)] for r in range(plan.cluster)]
+        assert sorted(sum(per_rank, [])) == centers  # each center in exactly one rank
+
+
+@pytest.mark.parametrize("count", [0, 1, 3, 7, 8, 200, 2048, 8191])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_rank_slices_partition_the_centers(count, cluster):
+    slices = [pairwise.rank_slice(count, cluster, r) for r in range(cluster)]
+    assert slices[0][0] == 0 and slices[-1][1] == count
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    sizes = [hi - lo for lo, hi in slices]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("n", [1, 31, 2047, 2048, 16384, 100000])
+@pytest.mark.parametrize("d", [1, 57, 512])
+@pytest.mark.parametrize("sm", [1, 132])
+def test_launch_plan_fits(n, d, sm):
+    plan = pairwise.launch_plan(n, d, sm)
+    assert plan.row_blocks * pairwise.ROWS >= n > (plan.row_blocks - 1) * pairwise.ROWS
+    assert plan.grid == plan.row_blocks * plan.cluster
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.cluster == 1 or plan.grid <= pairwise.CTAS_PER_SM * sm
+    assert plan.smem_bytes <= pairwise.SMEM_BLOCK
+    assert plan.center_tile % pairwise.GROUP == 0 and 0 < plan.center_tile <= pairwise.MAX_TILE
+    assert plan.tile_stride % 4 == 0 and plan.tile_stride >= plan.center_tile
+    assert plan.chunk % pairwise.SCAN == 0 and plan.chunk <= pairwise.MASK_CHUNK
+
+
+def test_launch_plan_at_bench_width():
+    plan = pairwise.launch_plan(2048, 57, SM)
+    assert (plan.row_blocks, plan.cluster, plan.grid) == (64, 4, 256)
+    assert plan.center_tile == pairwise.MAX_TILE and plan.chunk == pairwise.SCAN
+    big = pairwise.launch_plan(16384, 57, SM)
+    assert (big.row_blocks, big.cluster, big.chunk) == (512, 1, pairwise.MASK_CHUNK)
+    assert big.smem_bytes <= 48 * 1024  # four CTAs fit an SM
+
+
+def test_c_plan_struct_and_constants_match():
+    """csrc/pairwise.cu's ``struct Plan`` has DistancePlan's fields in order,
+    and its constants are the plan's."""
+    src = open(os.path.join(_build.CSRC, "pairwise.cu")).read()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = [f.strip() for decl in re.findall(r"long long ([^;]*);", body)
+              for f in decl.split(",")]
+    assert fields == list(pairwise.DistancePlan._fields)
+    assert pairwise.PLAN_LEN == len(fields)
+    for name, value in (("kRows", pairwise.ROWS), ("kWarps", pairwise.WARPS),
+                        ("kGroup", pairwise.GROUP), ("kMaxCluster", pairwise.MAX_CLUSTER)):
+        assert int(re.search(r"%s = (\d+);" % name, src).group(1)) == value

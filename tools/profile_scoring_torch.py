@@ -30,8 +30,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Kernel-name substrings -> class, first match wins (cuDNN's implicit-GEMM
 # convolutions also carry "gemm", so convolutions are matched first).
 CLASSES = (
-    ("K1 fused decode", ("fused_decode_kernel",)),
-    ("K2 min distance", ("min_dist",)),
+    ("K1 fused decode", ("decode_bulk_kernel", "decode_ragged_kernel")),  # csrc/decode.cu
+    ("K2 min distance", ("min_distance_kernel",)),  # csrc/pairwise.cu
     ("convolution (cuDNN)", ("fprop", "dgrad", "conv", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "imma", "xmma", "cutlass", "gemv", "sm90_")),
     ("copy / index / cat", ("copy", "cat", "index", "gather", "scatter", "pad")),
