@@ -6,17 +6,23 @@
 Builds the port's CUDA kernels from ``multi_view_active_learning_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 card (K1 decode at bench width and on its ragged, misaligned and one-row
-shapes; K2 coreset distance on the bench pool, its edge cases and a
-16384-row pool; K3 / K4 fused deconv head at the head's three bench-width
-shapes), checks the card's int8 convolutions
-against the CPU's, PoseResNet-50 against the stored forward goldens and a
-full-width triangulation against ground truth, then drives the active-
-learning scoring pass at the width of ``bench.py`` (B=4 frames, V=31 views,
-256x256 crops, K=19 joints, 64 RANSAC pairs, PoseResNet-50) through
-``Engine.score_step``: in bfloat16 and float32 with ``Engine.eval_step`` and
-the coreset ranking, then the int8 backbone (the default configuration)
-with the bf16 head and with K4, and the bf16 float path with K3.  The
-kernels' launch counters are set to 0 before each path and read after it.
+shapes; K2 coreset distance on the bench pool, its edge cases, feature
+widths 1 to 2048 (bit for bit on exact grids at 512, 2047 and 2048), a
+16384-row pool and the 2048 x 2048 EMBEDDING pool; K3 / K4 fused deconv head
+at the head's three bench-width shapes), checks the card's int8
+convolutions against the CPU's, PoseResNet-50 and HRNet-W32 against the
+stored forward goldens and a full-width triangulation against ground truth,
+then drives the active-learning scoring pass at the width of ``bench.py``
+(B=4 frames, V=31 views, 256x256 crops, K=19 joints, 64 RANSAC pairs)
+through ``Engine.score_step``: PoseResNet-50 in bfloat16 and float32 with
+``Engine.eval_step`` and the coreset ranking, then the int8 backbone (the
+default configuration) with the bf16 head and with K4, the bf16 float path
+with K3; HRNet-W32 in bf16 for TRIANGULATION, MPE, HP, BSB (AVG and STD)
+and AL.DIRECT_OPTIMIZATION, its uncertainty metrics on the card against the
+CPU, and its int8 path (TPU.INT8_SCORING_HRNET); and PoseResNet-50's CORESET
+with AL.CORESET_FEATURES=EMBEDDING, whose k-center picks on a 2048 x 2048
+pool must equal the plain CPU run's.  The kernels' launch counters are set
+to 0 before each path and read after it.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as its last line
@@ -42,6 +48,9 @@ GOLDENS = os.path.join(REPO, "tests", "fixtures", "model_forward_goldens.npz")
 # Main-path shape (bench.py:41-56).
 BATCH, VIEWS, IMG, JOINTS, DEPTH = 4, 31, 256, 19, 50
 POOL, POOL_DIM, LABELED, PICK = 2048, 3 * JOINTS, 200, 100
+# AL.CORESET_FEATURES=EMBEDDING: pooled trunk features, PoseResNet-50's
+# 2048 channels and HRNet-W32's 32.
+EMBED_DIM, HRNET_EMBED_DIM = 2048, 32
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory, the
 # FP32 rate outside the tensor cores (K1, K2), the bf16 and int8 tensor-core
@@ -356,13 +365,20 @@ def _k2_bound_ms(n, d, centers):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _k2_check(pairwise, feats, mask, tag):
+def _k2_check(pairwise, feats, mask, tag, float64_ref=False):
     """K2 against its plain version within K2_RTOL and 8 ulps of the largest
-    squared norm (after the sqrt); labeled points at exactly 0."""
+    squared norm (after the sqrt); labeled points at exactly 0.  With
+    `float64_ref` the plain version runs in float64: at d = 2048 its own
+    float32 cancellation floor (a labeled point about 0.08 off its center)
+    exceeds the 8-ulp bar that the kernel, whose self-distances are exactly
+    0, is held to."""
     import torch
 
     got = pairwise.min_distance_to_centers(feats, mask)
-    ref = pairwise.min_distance_to_centers_plain(feats, mask)
+    if float64_ref:
+        ref = pairwise.min_distance_to_centers_plain(feats.double(), mask).float()
+    else:
+        ref = pairwise.min_distance_to_centers_plain(feats, mask)
     torch.cuda.synchronize()
     atol = float(torch.sqrt(8 * 2.0**-23 * torch.max(torch.sum(feats * feats, dim=-1))))
     err = float(torch.max(torch.abs(got - ref))) if bool(mask.any()) else 0.0
@@ -375,11 +391,15 @@ def _k2_check(pairwise, feats, mask, tag):
 
 def phase_k2(dev, flush):
     """K2 against its plain version on the coreset ranking's pool (timed),
-    then: no centers (inf), scattered centers, n = 2047, d = 1 and d = 512,
+    then: no centers (inf), scattered centers, n = 2047, d = 1, 32 (HRNet's
+    embedding), 512, 2047 and 2048 (the feature axis walked in pieces),
     every row labeled, one center (all centers in one rank's slice), the
     centers in one block of n / cluster rows (what a split by row range
-    would give one rank), and a 16384 x 57 pool with 2048 contiguous
-    labeled rows (timed, with its share of the bound).  `ms` is one launch
+    would give one rank), a 16384 x 57 pool with 2048 contiguous labeled
+    rows and the 2048 x 2048 EMBEDDING pool of PoseResNet-50 with 200
+    labeled rows (both timed, with their shares of the bound).  On the
+    quarters grids (d = 512, 2047, 2048) every sum is exact, so the kernel
+    must equal the plain version bit for bit there.  `ms` is one launch
     after an L2 flush (cuda_ms); `rotated_ms` is printed beside it."""
     import torch
     from multi_view_active_learning_tpu_torch.kernels import _build, pairwise
@@ -407,14 +427,24 @@ def phase_k2(dev, flush):
         "one_row_range": (feats, block),
     }
     cases["d1"] = (torch.from_numpy(rng.normal(size=(POOL, 1)).astype(np.float32)).to(dev), mask)
-    # d = 512 on a grid of quarters in [-2, 2]: every square, product and sum
-    # is exact in float32, so the plain version's own rounding, which grows
-    # with d past the 8-ulp bar, does not enter the comparison.
-    quarters = rng.integers(-8, 9, size=(POOL, 512)).astype(np.float32) / 4
-    cases["d512"] = (torch.from_numpy(quarters).to(dev), mask)
-    errs = {}
+    cases["d%d" % HRNET_EMBED_DIM] = (torch.from_numpy(
+        rng.normal(size=(POOL, HRNET_EMBED_DIM)).astype(np.float32)).to(dev), mask)
+    # Grids of quarters in [-2, 2]: every square, product and sum is exact in
+    # float32, so the plain version's own rounding, which grows with d past
+    # the 8-ulp bar, does not enter the comparison, and the two must be equal.
+    exact = ("d512", "d2047", "d2048")
+    for tag in exact:
+        quarters = rng.integers(-8, 9, size=(POOL, int(tag[1:]))).astype(np.float32) / 4
+        cases[tag] = (torch.from_numpy(quarters).to(dev), mask)
+    errs, self_dist, k_plans = {}, {}, {}
     for tag, (f, mk) in cases.items():
-        _, errs[tag] = _k2_check(pairwise, f, mk, tag)
+        got_c, errs[tag] = _k2_check(pairwise, f, mk, tag)
+        self_dist[tag] = float(got_c[mk].max()) if bool(mk.any()) else None
+        if tag in exact:
+            ref_c = pairwise.min_distance_to_centers_plain(f, mk)
+            check(torch.equal(got_c, ref_c), "K2 %s: not bit-equal to plain on an exact grid" % tag)
+            wp = pairwise.launch_plan(POOL, f.shape[1], sms)
+            k_plans[tag] = dict(k_width=wp.k_width, k_steps=wp.k_steps, smem_bytes=wp.smem_bytes)
 
     ms = cuda_ms(lambda: pairwise.min_distance_to_centers(feats, mask), 50, flush)
     plain_ms = cuda_ms(lambda: pairwise.min_distance_to_centers_plain(feats, mask), 50, flush)
@@ -433,6 +463,15 @@ def phase_k2(dev, flush):
     big_bound_ms, big_bound_by = _k2_bound_ms(big_n, POOL_DIM, big_labeled)
     big_plan = pairwise.launch_plan(big_n, POOL_DIM, sms)
 
+    # The EMBEDDING pool: PoseResNet-50's pooled trunk features.
+    emb = torch.from_numpy(rng.normal(size=(POOL, EMBED_DIM)).astype(np.float32)).to(dev)
+    _, errs["embedding"] = _k2_check(pairwise, emb, mask, "embedding pool", float64_ref=True)
+    emb_plan = pairwise.launch_plan(POOL, EMBED_DIM, sms)
+    emb_bound_ms, emb_bound_by = _k2_bound_ms(POOL, EMBED_DIM, centers)
+    emb_ms = cuda_ms(lambda: pairwise.min_distance_to_centers(emb, mask), 20, flush)
+    emb_plain_ms = cuda_ms(lambda: pairwise.min_distance_to_centers_plain(emb, mask), 10, flush)
+    emb_rot_ms = rotated_ms(pairwise.min_distance_to_centers, rotation(emb, mask))
+
     row = dict(name="min_distance_to_centers", route="cuda",
                source="multi_view_active_learning_tpu_torch/csrc/pairwise.cu",
                replaces="multi_view_active_learning_tpu/ops/pallas/pairwise.py:63",
@@ -440,6 +479,15 @@ def phase_k2(dev, flush):
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     emit("k2", shape=[POOL, POOL_DIM], centers=centers, max_abs_err=row["max_abs_err"],
          case_errs=errs, rtol=K2_RTOL, labeled_self_distance=float(got[-LABELED:].max()),
+         labeled_self_distance_by_case=self_dist, bit_equal_on_exact_grids=list(exact),
+         k_plans=k_plans,
+         embedding=dict(shape=[POOL, EMBED_DIM], centers=centers, ms=emb_ms, plain_ms=emb_plain_ms,
+                        rotated_ms=emb_rot_ms, bound_ms=emb_bound_ms, bound_by=emb_bound_by,
+                        share_of_bound=emb_bound_ms / emb_ms,
+                        rotated_share_of_bound=emb_bound_ms / emb_rot_ms,
+                        k_width=emb_plan.k_width, k_steps=emb_plan.k_steps,
+                        cluster=emb_plan.cluster, grid=emb_plan.grid,
+                        smem_bytes=emb_plan.smem_bytes),
          cluster=dict(rows_per_cluster=pairwise.ROWS, row_blocks=plan.row_blocks,
                       cluster=plan.cluster, grid=plan.grid, center_tile=plan.center_tile,
                       smem_bytes=plan.smem_bytes),
@@ -688,6 +736,31 @@ def phase_model(dev):
          tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
 
 
+def phase_hrnet_model(dev):
+    """HRNet-W32 at 128x128 on the golden weights, TF32 off."""
+    import torch
+    from multi_view_active_learning_tpu_torch.models import PoseHighResolutionNet
+
+    g = np.load(GOLDENS)
+    names = json.loads(bytes(g["hrnet_w32_names"]).decode())
+    shapes = json.loads(bytes(g["hrnet_w32_shapes"]).decode())
+    values = golden_fill_values(names, shapes, int(g["weight_seed"]))
+    model = PoseHighResolutionNet(int(g["num_joints"])).to(dev).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in values.items()}, strict=True)
+    hw, batch = int(g["input_hw"]), int(g["batch"])
+    x = np.random.default_rng(int(g["input_seed"])).normal(size=(batch, 3, hw, hw))
+    with torch.inference_mode():
+        y = model(torch.from_numpy(x.astype(np.float32)).to(dev)).cpu().numpy()
+    ref = g["hrnet_w32_output"]
+    scale = float(np.abs(ref).max())
+    max_err = float(np.abs(y - ref).max())
+    cos = float(np.dot(y.ravel(), ref.ravel()) / (np.linalg.norm(y) * np.linalg.norm(ref)))
+    check(max_err <= 1e-4 * scale and cos > 0.999999,
+          "HRNet-W32 off the goldens: max_err %g scale %g cos %r" % (max_err, scale, cos))
+    emit("hrnet_model", max_err=max_err, scale=scale, cosine=cos, tolerance=1e-4 * scale,
+         tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
+
+
 def phase_triangulation(dev, pairs):
     """Gaussians rendered at projected ground truth on 31 views, decoded by
     K1 and triangulated: ground truth must come back."""
@@ -724,19 +797,23 @@ def phase_triangulation(dev, pairs):
          tolerance=[GT_MEAN_TOL, GT_MAX_TOL], inlier_count=inliers.tolist())
 
 
-def _engine(dtype, dev, state_dict, **tpu):
-    """A depth-50 engine on the given weights; `tpu` sets TPU options (the
-    float paths turn the default int8 scoring off)."""
+def _engine(dtype, dev, state_dict, model="POSE_RESNET", al=None, **tpu):
+    """A PoseResNet-50 (or, with model="HRNET", HRNet-W32) engine on the
+    given weights; `al` sets AL options and `tpu` TPU options (the float
+    paths turn the default int8 scoring off)."""
     from multi_view_active_learning_tpu_torch.config import get_default_configs
     from multi_view_active_learning_tpu_torch.engine import Engine
 
     cfg = get_default_configs()
     cfg.DATA.NUM_JOINTS = JOINTS
+    cfg.POSE_ESTIMATOR.TYPE = model
     cfg.POSE_ESTIMATOR.NUM_LAYERS = DEPTH
     cfg.TPU.INT8_SCORING = False
     cfg.TPU.COMPUTE_DTYPE = dtype
     for key, value in tpu.items():
         setattr(cfg.TPU, key, value)
+    for key, value in (al or {}).items():
+        setattr(cfg.AL, key, value)
     engine = Engine(cfg, device=dev)
     engine.load_state_dict(state_dict)
     return engine
@@ -916,6 +993,179 @@ def phase_paths(dev, ctx):
     return counts
 
 
+# The HRNet-W32 path's score_steps: (label, strategy, score_step keywords,
+# AL options of the engine).
+HRNET_STEPS = [
+    ("TRIANGULATION", "TRIANGULATION", {}, None),
+    ("MPE", "MPE", {}, None),
+    ("HP", "HP", {}, None),
+    ("BSB", "BSB", {}, None),
+    ("BSB_STD", "BSB", dict(bsb_aggregate="STD"), None),
+    ("DIRECT_OPTIMIZATION", "TRIANGULATION", {}, dict(DIRECT_OPTIMIZATION=True)),
+]
+STEP_WARMUP, STEP_RUNS = 1, 3
+# Uncertainty metrics on the card against the same computation on the CPU
+# on the same heatmaps: the peak masks are compared for equality; the
+# metrics within rtol 1e-4 and atol 1e-5 (float32 exp, log and sums in
+# another order).
+UNC_RTOL, UNC_ATOL = 1e-4, 1e-5
+# embed_step against score_step's embedding on the same frames: the same
+# function, so equal unless cuDNN picks another algorithm between calls;
+# held to 1e-3 of the embedding's scale (a bf16 step is 2^-8 relative).
+EMBED_ATOL_OF_SCALE = 1e-3
+
+
+def hrnet_state_dict():
+    """Seeded HRNet-W32 weights for the bench-width paths.  The fill keeps
+    activations O(1) through each BN, but the exchange units' sums grow the
+    high-resolution branch so that the final conv's output has a std of
+    about 8,400 (measured at 128x128 on the CPU): every row-softmax
+    saturates (HP = 0, one peak a map).  The final layer's weight is scaled
+    by 1e-4, so the uncertainty metrics see heatmaps of about unit scale."""
+    import torch
+    from multi_view_active_learning_tpu_torch.models import PoseHighResolutionNet
+
+    state_dict = random_state_dict(PoseHighResolutionNet(JOINTS), seed=8)
+    state_dict["final_layer.weight"] = state_dict["final_layer.weight"] * torch.tensor(1e-4)
+    return state_dict
+
+
+def phase_hrnet_path(dev, ctx):
+    """HRNet-W32 in bf16 at bench width through Engine.score_step: each of
+    HRNET_STEPS timed, with the launch counters set to 0 before and read
+    after (K1 once per step; K2, K3 and K4 never); MPE's peak masks and the
+    three metrics (AVG and STD) on the card against the CPU on the same
+    heatmaps; then the TPU.INT8_SCORING_HRNET path, calibrated on the batch,
+    against the float heatmaps: cosine at bench width (printed) and, with
+    dynamic scales on 64x64 crops, the JAX package's bar (cosine > 0.99)."""
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch.ops import uncertainty
+
+    state_dict = hrnet_state_dict()
+    images, valid = ctx["images"], ctx["valid"]
+    args = (images, ctx["proj"], valid, ctx["pairs"], ctx["gt"])
+    engines, steps, counts = {}, {}, {}
+    for label, strategy, kw, al in HRNET_STEPS:
+        key = json.dumps(al)
+        if key not in engines:
+            engines[key] = _engine("bfloat16", dev, state_dict, model="HRNET", al=al)
+        engine = engines[key]
+        check(not engine.use_int8, "HRNet float path: int8 gate")
+        kernels.reset_launch_counts()
+        step_ms, out = _timed_steps(
+            lambda: engine.score_step(*args, al_strategy=strategy, **kw), STEP_WARMUP, STEP_RUNS)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        _check_scores(out, "hrnet " + label)
+        want = dict.fromkeys(launches, 0)
+        want["fused_decode"] = STEP_WARMUP + STEP_RUNS
+        check(launches == want, "hrnet %s launches %s, want %s" % (label, launches, want))
+        if strategy != "TRIANGULATION":
+            check(bool(torch.all(out["al_metric"] > 0)), "hrnet %s metric %s" % (label, out["al_metric"]))
+        forward_ms, _ = _timed_steps(lambda: engine.forward(images), 1, 3)
+        steps[label] = dict(step_ms=step_ms, frames_per_s=BATCH / step_ms * 1e3, forward_ms=forward_ms,
+                            al_metric=out["al_metric"].tolist(), sal_metric=out["sal_metric"].tolist(),
+                            inlier_count=out["inlier_count"].tolist())
+        counts[label] = launches
+
+    # The metrics on the card against the CPU on the same heatmaps.
+    heat = engines["null"].forward(images)
+    with torch.inference_mode():
+        mask = uncertainty.local_peak_mask(heat)
+        torch.cuda.synchronize()
+        cpu_heat, cpu_valid = heat.cpu(), valid.cpu()
+        check(torch.equal(mask.cpu(), uncertainty.local_peak_mask(cpu_heat)),
+              "MPE peak masks differ between the card and the CPU")
+        metric_errs = {}
+        for name, fn in (("MPE", uncertainty.multi_peak_entropy),
+                         ("HP", uncertainty.highest_probability),
+                         ("BSB", uncertainty.best_vs_second_best)):
+            for agg in ("AVG", "STD"):
+                card, cpu = fn(heat, valid, agg).cpu(), fn(cpu_heat, cpu_valid, agg)
+                check(bool(torch.allclose(card, cpu, rtol=UNC_RTOL, atol=UNC_ATOL)),
+                      "%s %s differs between the card and the CPU: %s %s" % (name, agg, card, cpu))
+                metric_errs["%s_%s" % (name, agg)] = float(torch.max(torch.abs(card - cpu)))
+
+    # TPU.INT8_SCORING_HRNET.
+    int8 = _engine("bfloat16", dev, state_dict, model="HRNET", INT8_SCORING=True,
+                   INT8_SCORING_HRNET=True)
+    check(int8.use_int8, "HRNet int8 gate")
+    kernels.reset_launch_counts()
+    scales = int8.int8_calibrate(images)
+    int8_ms, out = _timed_steps(lambda: int8.score_step(*args, int8_scales=scales), 1, 3)
+    int8_fwd_ms, int8_heat = _timed_steps(lambda: int8.forward(images, scales), 1, 3)
+    torch.cuda.synchronize()
+    int8_launches = kernels.launch_counts()
+    _check_scores(out, "hrnet int8")
+    check(int8_launches["fused_decode"] == 4, "hrnet int8: K1 launches %s" % int8_launches)
+    cos, max_err, agree = _agreement(int8_heat, heat)
+    small = _agreement(int8.forward(ctx["small"]), engines["null"].forward(ctx["small"]))
+    check(small[0] > INT8_COS, "HRNet int8 off the float heatmaps at %dx%d: cosine %g"
+          % (INT8_BAR_IMG, INT8_BAR_IMG, small[0]))
+    emit("hrnet_path", model="HRNet-W32", dtype="bfloat16", batch=BATCH, views=VIEWS, img=IMG,
+         joints=JOINTS, steps=steps, launches=counts, peak_masks_equal=True,
+         peaks_per_map=float(mask.sum()) / mask[..., 0, 0].numel(), metric_card_cpu_err=metric_errs,
+         int8=dict(step_ms=int8_ms, frames_per_s=BATCH / int8_ms * 1e3, forward_ms=int8_fwd_ms,
+                   scales=len(scales), cosine=cos, max_err_of_scale=max_err, argmax_agreement=agree,
+                   at_64=dict(cosine=small[0], max_err_of_scale=small[1], argmax_agreement=small[2]),
+                   launches=int8_launches))
+
+
+def phase_embedding(dev, ctx):
+    """PoseResNet-50, CORESET with AL.CORESET_FEATURES=EMBEDDING at bench
+    width: score_step returns the [4, 2048] embedding, embed_step agrees
+    with it, and CoreSet(features=...) on a [2048, 2048] pool on the card
+    (the scored frames' embeddings in its first rows, 200 labeled rows)
+    picks the plain CPU run's indices, through K2 at d = 2048."""
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch.ops import coreset
+
+    engine = _engine("bfloat16", dev, ctx["state_dict"],
+                     al=dict(STRATEGY="CORESET", CORESET_FEATURES="EMBEDDING"))
+    check(not engine.use_int8, "EMBEDDING: int8 gate")
+    images = ctx["images"]
+    args = (images, ctx["proj"], ctx["valid"], ctx["pairs"], ctx["gt"])
+    kernels.reset_launch_counts()
+    step_ms, out = _timed_steps(lambda: engine.score_step(*args, al_strategy="CORESET"),
+                                STEP_WARMUP, STEP_RUNS)
+    forward_ms, embedded = _timed_steps(lambda: engine.embed_step(images), 1, 3)
+    torch.cuda.synchronize()
+    step_launches = kernels.launch_counts()
+    emb = out.pop("embedding")
+    _check_scores(out, "embedding")
+    check(tuple(emb.shape) == (BATCH, EMBED_DIM) and bool(torch.all(torch.isfinite(emb))),
+          "embedding %s" % (tuple(emb.shape),))
+    check(step_launches["fused_decode"] == STEP_WARMUP + STEP_RUNS,
+          "EMBEDDING: K1 launches %s" % step_launches)
+    scale = float(torch.max(torch.abs(emb)))
+    embed_err = float(torch.max(torch.abs(embedded - emb)))
+    check(embed_err <= EMBED_ATOL_OF_SCALE * scale,
+          "embed_step off score_step's embedding: %g of %g" % (embed_err, scale))
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    feats = torch.randn((POOL, EMBED_DIM), generator=gen, device=dev)
+    feats[:BATCH] = emb
+    sal = {"s%04d" % i: np.zeros((JOINTS, 3)) for i in range(POOL - LABELED)}
+    al = {"a%04d" % i: np.zeros((JOINTS, 3)) for i in range(LABELED)}
+    kernels.reset_launch_counts()
+    coreset_ms, picks = _timed_steps(
+        lambda: coreset.CoreSet(sal, al, 0, features=feats).select_batch(PICK), 1, 3)
+    torch.cuda.synchronize()
+    pick_launches = kernels.launch_counts()
+    check(pick_launches["min_distance_to_centers"] == 4,
+          "EMBEDDING coreset: K2 launches %s" % pick_launches)
+    plain = coreset.CoreSet(sal, al, 0, device="cpu", features=feats.cpu()).select_batch(PICK)
+    check(picks == plain, "EMBEDDING coreset picks differ from the plain CPU run's")
+    emit("embedding_path", model="PoseResNet-50", dtype="bfloat16", batch=BATCH, views=VIEWS,
+         img=IMG, embedding=list(emb.shape), step_ms=step_ms, frames_per_s=BATCH / step_ms * 1e3,
+         forward_ms=forward_ms, embed_step_err=embed_err, embedding_scale=scale,
+         pool=[POOL, EMBED_DIM], labeled=LABELED, pick=PICK, coreset_ms=coreset_ms,
+         picks_equal_plain=True, first_picks=picks[:5], launches=step_launches,
+         coreset_launches=pick_launches)
+
+
 def main() -> int:
     import torch
 
@@ -937,11 +1187,14 @@ def main() -> int:
     rows = [phase_k1(dev, flush), phase_k2(dev, flush), phase_k3(dev, flush), phase_k4(dev, flush)]
     phase_int8_conv(dev)
     phase_model(dev)
+    phase_hrnet_model(dev)
     cfg = get_default_configs()
     pairs = all_view_pairs(VIEWS, cfg.AL.RANSAC_N_ITERS, int(cfg.RANDOM_SEED) & 0x7FFFFFFF)
     phase_triangulation(dev, pairs)
     launches, ctx = phase_main_path(dev)
     path_launches = phase_paths(dev, ctx)
+    phase_hrnet_path(dev, ctx)
+    phase_embedding(dev, ctx)
     # Each kernel's launches on the path that drives it.
     launches["fused_deconv_bn_relu"] = path_launches["bf16_k3"]["fused_deconv_bn_relu"]
     launches["fused_deconv_bn_relu_int8"] = path_launches["int8_k4"]["fused_deconv_bn_relu_int8"]

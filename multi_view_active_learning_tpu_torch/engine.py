@@ -1,15 +1,20 @@
 """Scoring / eval engine of the port: the active-learning scoring pass.
 
 Port of the JAX package's engine.py for the inference steps (reference:
-strategy.py:584-634 and 1004-1147): uint8 multi-view frames ->
-ImageNet normalization in the compute dtype -> PoseResNet forward ->
-fused heatmap decode (K1) -> RANSAC-DLT triangulation -> AL metric.
+strategy.py:173-187, 584-634 and 1004-1215): uint8 multi-view frames ->
+ImageNet normalization in the compute dtype -> PoseResNet or HRNet forward
+-> fused heatmap decode (K1) -> RANSAC-DLT triangulation (with the Huber
+refine under ``AL.DIRECT_OPTIMIZATION``) -> AL metric (TRIANGULATION,
+MPE / HP / BSB with AVG or STD, RANDOM, or none for CORESET, which with
+``AL.CORESET_FEATURES=EMBEDDING`` returns the pooled trunk embedding).
 
 The forward is routed as the JAX engine routes it: the int8 backbone
 (models/quantize.py; ``TPU.INT8_SCORING``, on by default, gated per
-strategy, with K4 for the head under ``TPU.INT8_DECONV``), else the float
-trunk with the head through K3 (``TPU.PALLAS_HEAD``), else the standard
-float model.
+strategy and, for HRNet, by ``TPU.INT8_SCORING_HRNET``; PoseResNet's head
+through K4 under ``TPU.INT8_DECONV``), else the float trunk with the head
+through K3 (``TPU.PALLAS_HEAD``, PoseResNet), else the standard float
+model.  The EMBEDDING features and ``loss_step`` always take the float
+model.
 
 The engine owns the model and its weights (``load_state_dict``), runs on
 the CUDA device unless given ``device="cpu"``, and raises
@@ -30,21 +35,16 @@ from .models import build_model, compute_dtype
 from .models import quantize
 from .ops import geometry
 from .ops import triangulate as tri
+from .ops import uncertainty
 
 # (config key, value that is not ported, ROADMAP queue item)
 _UNPORTED = (
     ("TPU.SPACE_TO_DEPTH_STEM", True, "Queue A12, exact reformulation options"),
     ("TPU.FAST_DECONV", True, "Queue A12, exact reformulation options"),
     ("TPU.USE_PALLAS", False, "Queue B1; the port always decodes through its kernel"),
-    ("POSE_ESTIMATOR.TYPE", "HRNET", "Queue A3, HRNet"),
-    ("AL.STRATEGY", "MPE", "Queue A5, uncertainty metrics"),
-    ("AL.STRATEGY", "HP", "Queue A5, uncertainty metrics"),
-    ("AL.STRATEGY", "BSB", "Queue A5, uncertainty metrics"),
-    ("AL.CORESET_FEATURES", "EMBEDDING", "Queue A5, coreset EMBEDDING features"),
-    ("AL.DIRECT_OPTIMIZATION", True, "Queue A2, _huber_refine"),
 )
 
-SCORING_STRATEGIES = ("TRIANGULATION", "RANDOM", "CORESET")
+SCORING_STRATEGIES = ("TRIANGULATION", "RANDOM", "CORESET", "MPE", "HP", "BSB")
 
 # Strategies whose selection measured int8-safe in the JAX package
 # (tools/validate_learning.py --int8_compare, BENCH_NOTES round 4): they
@@ -76,6 +76,11 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             "TPU.VIEW_AXIS=%r is not ported to PyTorch yet (ROADMAP Queue A9, "
             "multi-GPU)" % cfg.TPU.VIEW_AXIS
+        )
+    if cfg.TPU.HRNET_PACKED_MAX_CH > 0:
+        raise NotImplementedError(
+            "TPU.HRNET_PACKED_MAX_CH=%r is not ported to PyTorch yet (ROADMAP Queue A12, "
+            "exact reformulation options)" % cfg.TPU.HRNET_PACKED_MAX_CH
         )
 
 
@@ -128,6 +133,7 @@ class Engine:
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
         self.model = build_model(cfg).to(self.device).eval()
+        self.model_type = cfg.POSE_ESTIMATOR.TYPE
         self.stride = cfg.POSE_ESTIMATOR.STRIDE
         self.use_int8 = use_int8(cfg)
         self.use_int8_eval = use_int8_eval(cfg)
@@ -135,7 +141,7 @@ class Engine:
         # The port always runs its own kernels, so the heads follow the
         # options alone (the JAX engine also needs a Pallas backend).
         self.int8_head = bool(cfg.TPU.INT8_DECONV)
-        self.use_pallas_head = bool(cfg.TPU.PALLAS_HEAD) and cfg.POSE_ESTIMATOR.TYPE == "POSE_RESNET"
+        self.use_pallas_head = bool(cfg.TPU.PALLAS_HEAD) and self.model_type == "POSE_RESNET"
         self._pairs_cache: Dict[int, np.ndarray] = {}
         self._mean = torch.as_tensor(geometry.IMAGENET_MEAN, device=self.device).to(self.dtype)
         self._std = torch.as_tensor(geometry.IMAGENET_STD, device=self.device).to(self.dtype)
@@ -159,6 +165,7 @@ class Engine:
             self._int8_weights = quantize.quantize_state_dict(
                 {k: v.to(self.device) for k, v in state_dict.items()},
                 self.cfg.POSE_ESTIMATOR.NUM_LAYERS, int8_head=self.int8_head,
+                model_type=self.model_type,
             )
 
     def pairs(self, num_views: int) -> np.ndarray:
@@ -185,6 +192,12 @@ class Engine:
     def _int8_forward(self, flat: torch.Tensor, act_scales=None, collect_scales=False):
         if self._int8_weights is None:
             raise RuntimeError("the int8 backbone is off in this engine's config")
+        if self.model_type == "HRNET":
+            return quantize.quantized_hrnet_forward(
+                self._int8_weights, flat, *self.model.stage_configs,
+                self.model.final_conv_kernel, act_scales=act_scales,
+                collect_scales=collect_scales,
+            )
         return quantize.quantized_pose_resnet_forward(
             self._int8_weights, flat, self.cfg.POSE_ESTIMATOR.NUM_LAYERS,
             act_scales=act_scales, collect_scales=collect_scales,
@@ -236,25 +249,32 @@ class Engine:
         al_strategy: str = "TRIANGULATION",
         generator: Optional[torch.Generator] = None,
         int8_scales: Optional[Mapping[str, torch.Tensor]] = None,
+        mpe_aggregate: str = "AVG",
+        hp_aggregate: str = "AVG",
+        bsb_aggregate: str = "AVG",
     ) -> Dict[str, torch.Tensor]:
         """Unlabeled-pool scoring: forward + triangulation + AL metric.
 
         images: uint8 [B, V, H, W, 3]; proj_matrices: [B, V, 3, 4];
         joint_valid: [B, K] bool; pairs: [P, 2]; gt_keypoints_3d: [B, K, 3].
         RANDOM draws from `generator` (a torch.Generator on this device,
-        seeded by the caller).  The forward is int8 when ``use_int8``, with
-        the static ``int8_scales`` of ``int8_calibrate`` if given.  Returns
-        keypoints_3d [B, K, 3], sal_metric [B], inlier_count [B],
-        al_metric [B] and mkpe [B].
+        seeded by the caller); MPE / HP / BSB aggregate over the valid
+        (view, joint) entries by their `*_aggregate` ("AVG" or "STD").  The
+        forward is int8 when ``use_int8``, with the static ``int8_scales`` of
+        ``int8_calibrate`` if given.  Returns keypoints_3d [B, K, 3],
+        sal_metric [B], inlier_count [B], al_metric [B] and mkpe [B], plus
+        embedding [B, C] (the view-averaged pooled trunk features) for
+        CORESET with AL.CORESET_FEATURES=EMBEDDING.
         """
         if al_strategy not in SCORING_STRATEGIES:
-            raise NotImplementedError(
-                "AL strategy %s is not ported to PyTorch yet (ROADMAP Queue A5)"
-                % al_strategy
-            )
+            raise NotImplementedError("Unknown AL strategy: %s" % al_strategy)
         if al_strategy == "RANDOM" and generator is None:
             raise ValueError("the RANDOM strategy needs a seeded torch.Generator")
-        heatmaps = self.forward(images, int8_scales, use_int8=self.use_int8)
+        embedding = None
+        if al_strategy == "CORESET" and self.cfg.AL.CORESET_FEATURES == "EMBEDDING":
+            heatmaps, embedding = self._features_forward(images)
+        else:
+            heatmaps = self.forward(images, int8_scales, use_int8=self.use_int8)
         joint_valid = self._tensor(joint_valid, torch.bool)
         res = tri.triangulate_frames(
             heatmaps,
@@ -268,13 +288,20 @@ class Engine:
             epsilon=self.cfg.AL.RANSAC_EPSILON,
             method=self.cfg.TPU.DLT_METHOD,
             confidence_weighted=self.cfg.AL.CONFIDENCE_WEIGHTED_DLT,
+            direct_optimization=self.cfg.AL.DIRECT_OPTIMIZATION,
         )
         B = heatmaps.shape[0]
         if al_strategy == "RANDOM":
             al_metric = torch.rand((B,), generator=generator, device=self.device)
         elif al_strategy == "TRIANGULATION":
             al_metric = res["metric"]
-        else:  # CORESET ranks poses afterwards; no per-frame metric
+        elif al_strategy == "MPE":
+            al_metric = uncertainty.multi_peak_entropy(heatmaps, joint_valid, mpe_aggregate)
+        elif al_strategy == "HP":
+            al_metric = uncertainty.highest_probability(heatmaps, joint_valid, hp_aggregate)
+        elif al_strategy == "BSB":
+            al_metric = uncertainty.best_vs_second_best(heatmaps, joint_valid, bsb_aggregate)
+        else:  # CORESET ranks poses or embeddings afterwards; no per-frame metric
             al_metric = torch.zeros((B,), device=self.device)
 
         # Per-frame MKPE against GT (strategy.py:1134-1145).
@@ -284,13 +311,49 @@ class Engine:
         count = torch.clamp(torch.sum(joint_valid, dim=-1), min=1)
         mkpe = torch.sum(d, dim=-1) / count
 
-        return {
+        out = {
             "keypoints_3d": res["keypoints_3d"],
             "sal_metric": res["metric"],
             "inlier_count": res["inlier_count"],
             "al_metric": al_metric,
             "mkpe": mkpe,
         }
+        if embedding is not None:
+            out["embedding"] = embedding
+        return out
+
+    def _features_forward(self, images):
+        """The standard float forward with the pooled trunk features:
+        (heatmaps [B, V, K, h, w], view-averaged embedding [B, C] float32),
+        shared by score_step and embed_step so the pool's and the labeled
+        set's embeddings come from one function.  Never int8 and never K3,
+        whatever TPU.INT8_SCORING_FORCE or PALLAS_HEAD say (JAX
+        engine.py:550-567): k-center distances on requantized features buy
+        noise, not speed."""
+        images = self._tensor(images)
+        B, V = images.shape[0], images.shape[1]
+        x = self._flatten_normalize(images).permute(0, 3, 1, 2).contiguous()
+        out, feats = self.model(x, return_features=True)
+        heatmaps = out.reshape((B, V) + tuple(out.shape[1:]))
+        return heatmaps, torch.mean(feats.reshape(B, V, -1), dim=1)
+
+    @torch.inference_mode()
+    def embed_step(self, images) -> torch.Tensor:
+        """Pooled trunk embeddings [B, V, H, W, 3] -> [B, C] float32: the
+        AL.CORESET_FEATURES=EMBEDDING features of frames the scoring sweep
+        does not visit (the labeled set)."""
+        return self._features_forward(images)[1]
+
+    @torch.inference_mode()
+    def loss_step(self, images, gt_heatmaps) -> torch.Tensor:
+        """Per-frame heatmap MSE for CLUSTER TYPE=LOSS (reference:
+        strategy.py:173-187): sum((heatmaps - gt)^2) / (h * w) per frame,
+        [B].  gt_heatmaps in the port's layout [B, V, K, h, w].  Always the
+        float forward."""
+        heatmaps = self.forward(images, use_int8=False)
+        sq = torch.square(heatmaps - self._tensor(gt_heatmaps, torch.float32))
+        h, w = heatmaps.shape[-2], heatmaps.shape[-1]
+        return torch.sum(sq, dim=(1, 2, 3, 4)) / (h * w)
 
     @torch.inference_mode()
     def eval_step(self, images, proj_matrices, joint_valid, pairs,

@@ -1,10 +1,11 @@
-"""Pose estimators of the port: PoseResNet (HRNet is a later slice)."""
+"""Pose estimators of the port: PoseResNet and HRNet."""
 
 import torch
 
+from .hrnet import PoseHighResolutionNet
 from .pose_resnet import PoseResNet
 
-__all__ = ["PoseResNet", "build_model", "compute_dtype"]
+__all__ = ["PoseHighResolutionNet", "PoseResNet", "build_model", "compute_dtype"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -16,7 +17,7 @@ def compute_dtype(cfg) -> torch.dtype:
     raise ValueError("Unknown TPU.COMPUTE_DTYPE: %s" % name)
 
 
-def build_model(cfg) -> PoseResNet:
+def build_model(cfg) -> torch.nn.Module:
     """Instantiate the configured pose estimator (reference:
     workflow.py:125-139)."""
     if cfg.POSE_ESTIMATOR.TYPE == "POSE_RESNET":
@@ -26,7 +27,9 @@ def build_model(cfg) -> PoseResNet:
             dtype=compute_dtype(cfg),
         )
     if cfg.POSE_ESTIMATOR.TYPE == "HRNET":
-        raise NotImplementedError(
-            "POSE_ESTIMATOR.TYPE=HRNET is not ported yet (ROADMAP Queue A3)"
+        return PoseHighResolutionNet.from_config(
+            num_joints=cfg.DATA.NUM_JOINTS,
+            hrnet_cfg=cfg.POSE_ESTIMATOR.HRNET,
+            dtype=compute_dtype(cfg),
         )
     raise ValueError("Unknown POSE_ESTIMATOR.TYPE: %s" % cfg.POSE_ESTIMATOR.TYPE)

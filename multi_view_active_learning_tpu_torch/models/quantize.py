@@ -1,7 +1,6 @@
-"""Int8 PoseResNet inference for the scoring / eval path.
+"""Int8 PoseResNet and HRNet inference for the scoring / eval path.
 
-The port of the JAX package's models/quantize.py (PoseResNet part; HRNet's
-int8 forward waits for HRNet, ROADMAP Queue A3):
+The port of the JAX package's models/quantize.py:
 
   * weights: symmetric per-output-channel s8, quantized once from the
     float32 weights (``quantize_state_dict``, at every weight load);
@@ -15,11 +14,18 @@ int8 forward waits for HRNet, ROADMAP Queue A3):
     ``float_tail_stages`` runs the last stages' convs in bf16 instead;
   * the deconv head runs the bf16 ``conv_transpose`` by default, or K4
     (kernels/deconv.py::fused_deconv_bn_relu_int8) with ``int8_head``;
-  * the final 1x1 runs in float32.
+  * the final 1x1 runs in float32;
+  * HRNet (``quantized_hrnet_forward``): every conv int8 with folded BN, the
+    exchange units' sums in float32 then ReLU then bf16, the nearest
+    upsample a repeat, the final conv in float32.  HRNet has no deconv
+    head, so no K4.
 
 Activations are NHWC here; the scale-table keys are the JAX package's
-(``"stem"``, ``"layerS_I/conv1..3"``, ``"layerS_I/down"``, ``"deconv{i}"``),
-so a table calibrated by the JAX package drops in.
+(PoseResNet: ``"stem"``, ``"layerS_I/conv1..3"``, ``"layerS_I/down"``,
+``"deconv{i}"``; HRNet: ``"stem1"``, ``"stem2"``, ``"layer1_I/..."``,
+``"stageS_moduleM/branchB_blockI/..."``, ``".../fuseI_J"``,
+``".../fuseI_J_K"``, ``"transitionT_I"``, ``"transitionT_I_J"``), so a table
+calibrated by the JAX package drops in.
 """
 
 from __future__ import annotations
@@ -158,8 +164,27 @@ def _convs_and_bns(num_layers: int):
     return convs, bns
 
 
+def _hrnet_convs_and_bns(state_dict: Mapping[str, torch.Tensor]):
+    """(conv names, BN names) of a reference-named HRNet state dict: every
+    4-D weight but the final layer's is a conv, and its BN is named by the
+    reference's rule (``...conv{j}`` -> ``...bn{j}``, ``....0`` -> ``....1``)."""
+    convs = [k[:-len(".weight")] for k, v in state_dict.items()
+             if k.endswith(".weight") and v.dim() == 4 and k != "final_layer.weight"]
+    bns = []
+    for conv in convs:
+        head, _, leaf = conv.rpartition(".")
+        if leaf.startswith("conv"):
+            bns.append(("%s.bn%s" % (head, leaf[4:])).lstrip("."))
+        elif leaf == "0":
+            bns.append(head + ".1")
+        else:
+            raise KeyError("no BN for HRNet conv %s" % conv)
+    return convs, bns
+
+
 def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
-                        int8_head: bool = False) -> Dict[str, torch.Tensor]:
+                        int8_head: bool = False,
+                        model_type: str = "POSE_RESNET") -> Dict[str, torch.Tensor]:
     """Reference-named float weights -> what the int8 forward reads, on the
     weights' device:
 
@@ -172,8 +197,13 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
       ``final_layer.weight`` / ``.bias`` in float32.
 
     Quantizes the weights as given, so pass the float32 state dict (the
-    JAX package quantizes float32 parameters)."""
-    convs, bns = _convs_and_bns(num_layers)
+    JAX package quantizes float32 parameters).  ``model_type="HRNET"``
+    takes the HRNet's convs and BNs from the state dict's names
+    (``num_layers`` and ``int8_head`` do not apply)."""
+    if model_type == "HRNET":
+        convs, bns = _hrnet_convs_and_bns(state_dict)
+    else:
+        convs, bns = _convs_and_bns(num_layers)
     out: Dict[str, torch.Tensor] = {}
     for conv in convs:
         if conv + ".weight" not in state_dict:
@@ -251,3 +281,93 @@ def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.
     if collect_scales:
         return out, scales.recorded
     return out
+
+
+def _upsample_nhwc(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest upsample of NHWC by an integer factor: exact copies."""
+    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
+
+
+def quantized_hrnet_forward(qp: Mapping[str, torch.Tensor], images: torch.Tensor,
+                            stage2, stage3, stage4, final_conv_kernel: int = 1,
+                            act_scales=None, collect_scales: bool = False):
+    """Int8 HRNet inference forward: normalized images NHWC [N, H, W, 3] ->
+    heatmaps NCHW [N, K, H/4, W/4] float32 (the JAX package's
+    ``quantized_hrnet_forward``, models/quantize.py:340-475).
+
+    ``qp``: ``quantize_state_dict(..., model_type="HRNET")``'s output.
+    Stages in the (num_modules, num_branches, block, num_blocks,
+    num_channels) encoding.  ``act_scales`` / ``collect_scales`` as in
+    ``quantized_pose_resnet_forward``."""
+    scales = _ActScales(act_scales, collect_scales)
+    x = images.to(_BF16)
+    for i in (1, 2):
+        x = _qconv_bn(x, qp, "conv%d" % i, "bn%d" % i, scales, "stem%d" % i, 2)
+    for i in range(4):
+        x = _bottleneck_block(x, qp, _qconv_bn, scales, "layer1.%d" % i, "layer1_%d" % i, 1, i == 0)
+
+    prev, ys = [256], [x]
+    for s, (num_modules, num_branches, block, num_blocks, num_channels) in (
+            (2, stage2), (3, stage3), (4, stage4)):
+        block_fn = _basic_block if block == "BASIC" else _bottleneck_block
+        cur = [c * (1 if block == "BASIC" else 4) for c in num_channels]
+        xs = []
+        for i in range(num_branches):
+            tn, tk = "transition%d.%d" % (s - 1, i), "transition%d_%d" % (s - 1, i)
+            if i < len(prev):
+                y = ys[i]
+                if cur[i] != prev[i]:
+                    y = _qconv_bn(y, qp, tn + ".0", tn + ".1", scales, tk)
+            else:
+                y = ys[-1]
+                for j in range(i + 1 - len(prev)):
+                    y = _qconv_bn(y, qp, "%s.%d.0" % (tn, j), "%s.%d.1" % (tn, j), scales,
+                                  "%s_%d" % (tk, j), 2)
+            xs.append(y)
+        inchannels = list(cur)
+        for m in range(num_modules):
+            mod, mk = "stage%d.%d" % (s, m), "stage%d_module%d" % (s, m)
+            for b in range(num_branches):
+                for i in range(num_blocks[b]):
+                    xs[b] = block_fn(xs[b], qp, _qconv_bn, scales,
+                                     "%s.branches.%d.%d" % (mod, b, i),
+                                     "%s/branch%d_block%d" % (mk, b, i), 1,
+                                     i == 0 and inchannels[b] != cur[b])
+            if num_branches > 1:
+                multi_scale = not (s == 4 and m == num_modules - 1)
+                xs = _exchange(xs, qp, scales, mod, mk, num_branches if multi_scale else 1)
+            inchannels = list(cur)
+        ys, prev = xs, cur
+
+    w = qp["final_layer.weight"]
+    if w.shape[-1] == 1:
+        out = deconv.final_1x1(ys[0], w, qp["final_layer.bias"])
+    else:
+        out = F.conv2d(ys[0].to(torch.float32).permute(0, 3, 1, 2), w, qp["final_layer.bias"],
+                       padding=final_conv_kernel // 2)
+    if collect_scales:
+        return out, scales.recorded
+    return out
+
+
+def _exchange(ys, qp, scales, mod: str, mk: str, num_out: int):
+    """An HRNet exchange unit in int8: each output branch sums, in float32,
+    every branch carried to its resolution (1x1 int8 conv + BN + nearest
+    upsample from below, int8 stride-2 3x3 chains from above, ReLU on all
+    but the last step), then ReLU and bf16 (models/quantize.py:383-417)."""
+    fused = []
+    for i in range(num_out):
+        acc = None
+        for j, y in enumerate(ys):
+            fl = "%s.fuse_layers.%d.%d" % (mod, i, j)
+            if j > i:
+                y = _qconv_bn(y, qp, fl + ".0", fl + ".1", scales, "%s/fuse%d_%d" % (mk, i, j),
+                              relu=False)
+                y = _upsample_nhwc(y, 2 ** (j - i))
+            elif j < i:
+                for k in range(i - j):
+                    y = _qconv_bn(y, qp, "%s.%d.0" % (fl, k), "%s.%d.1" % (fl, k), scales,
+                                  "%s/fuse%d_%d_%d" % (mk, i, j, k), 2, relu=k != i - j - 1)
+            acc = y.to(torch.float32) if acc is None else acc + y.to(torch.float32)
+        fused.append(torch.relu(acc).to(_BF16))
+    return fused

@@ -63,19 +63,33 @@ def center_poses(poses: np.ndarray, root_index: int) -> np.ndarray:
 
 
 class CoreSet:
-    """Reference-compatible wrapper (utils/coreset.py:13-95) over POSE
-    features.
+    """Reference-compatible wrapper (utils/coreset.py:13-95).
 
     sal_dict: {guid: pose [K, 3]-like} for the unlabeled pool;
     al_dict: {key: pose} for the already-labeled set.
+
+    ``features`` replaces the pose feature space with an explicit
+    [len(sal_dict) + len(al_dict), C] matrix, rows in sal-then-al order: the
+    AL.CORESET_FEATURES=EMBEDDING path (pooled trunk embeddings from
+    ``Engine.score_step`` / ``embed_step``), ranked by K2 at d = C.  A tensor
+    of features keeps its device unless ``device`` is given.
     """
 
     def __init__(self, sal_dict, al_dict, joint_root_index: int,
-                 device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+                 device: Optional[Union[str, torch.device]] = None, features=None):
         self.sal_keys: List = list(sal_dict.keys())
         self.n_sal = len(sal_dict)
         self.n_obs = len(sal_dict) + len(al_dict)
+        if features is not None:
+            if device is None and torch.is_tensor(features):
+                device = features.device
+            self.device = resolve_device(device)
+            self.features = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+            if self.features.dim() != 2 or self.features.shape[0] != self.n_obs:
+                raise ValueError("features %s do not have one row for each of the %d pool "
+                                 "entries" % (tuple(self.features.shape), self.n_obs))
+            return
+        self.device = resolve_device(device)
         sal = [np.asarray(v) for v in sal_dict.values()]
         al = [np.asarray(v) for v in al_dict.values()]
         # The reference stores poses as [K, rows>=3] lists; keep [K, 3].

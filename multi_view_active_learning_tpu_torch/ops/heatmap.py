@@ -1,7 +1,8 @@
 """Heatmap synthesis and decoding, batched on the device.
 
 These are the plain PyTorch versions of the decode that
-``kernels/decode.py`` fuses into one CUDA pass (K1):
+``kernels/decode.py`` fuses into one CUDA pass (K1), and the bbox-scaled
+decode that runs through it:
 
   * Gaussian heatmap rendering (reference: dataset/dataset.py:198-207);
   * hard-argmax 2D decode (reference: utils/evaluation.py:13-30);
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..kernels import decode as decode_kernel
 
 
 def render_gaussian_heatmaps(
@@ -91,3 +94,27 @@ def decode_keypoints(
     else:
         coords, _ = decode_argmax(heatmaps, stride=stride)
     return torch.where(valid[..., None], coords, torch.zeros_like(coords))
+
+
+def decode_keypoints_bbox(
+    heatmaps: torch.Tensor,
+    bbox,
+    use_soft_argmax: bool = False,
+) -> torch.Tensor:
+    """Decode heatmaps to bbox-relative pixel coordinates through K1.
+
+    heatmaps: [..., K, h, w]; bbox: [..., 4] (left, top, right, bottom) ->
+    coords [..., K, 2]: the hard argmax (or soft-argmax) at stride 1, x
+    scaled by the box width over w and y by its height over h.  The
+    reference's get_pred_coordinates (utils/evaluation.py:33-58) mixes the
+    two and so holds only for square boxes; this is the JAX package's
+    non-square fix (ops/heatmap.py:105-130).  On a CUDA tensor the decode is
+    K1's launch; on the CPU its plain version."""
+    lead = heatmaps.shape[:-2]
+    h, w = heatmaps.shape[-2], heatmaps.shape[-1]
+    out = decode_kernel.fused_decode(heatmaps.reshape(-1, h * w).to(torch.float32), w, 1.0)
+    coords = (out["soft_coords"] if use_soft_argmax else out["coords"]).reshape(lead + (2,))
+    bbox = torch.as_tensor(bbox, dtype=torch.float32, device=heatmaps.device)
+    width = (bbox[..., 2] - bbox[..., 0])[..., None, None]
+    height = (bbox[..., 3] - bbox[..., 1])[..., None, None]
+    return coords * torch.cat([width / float(w), height / float(h)], dim=-1)

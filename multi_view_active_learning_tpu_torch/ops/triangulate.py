@@ -12,7 +12,10 @@ utils/triangulation.py:168-338).  No dynamic shapes:
   * inlier sets are boolean masks [B, K, P, V]; "largest inlier set wins,
     first on ties" is an argmax (utils/triangulation.py:293-307);
   * the refit over the winning inlier set is a masked DLT: a zero row adds
-    nothing to A^T A, so masking a row equals removing it.
+    nothing to A^T A, so masking a row equals removing it;
+  * ``direct_optimization`` refines the refit by Levenberg-Marquardt on the
+    inlier views' Huber-robust reprojection error (``_huber_refine``), a
+    fixed number of steps for every joint of every frame at once.
 
 The heatmap decode goes through K1 (``kernels/decode.py``).  Heatmaps come
 in the port's layout [B, V, K, h, w], so each map is one contiguous row of
@@ -144,6 +147,84 @@ def dlt_triangulate(
     return geometry.homogeneous_to_euclidean(_null_vector(A, method))
 
 
+def _solve3(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve H x = b for [..., 3, 3] H and [..., 3] b by Cramer's rule
+    (cofactors, no batched linalg); a |det| below 1e-30 is taken as 1e-30."""
+    det = _det3(H)
+    cols = []
+    for j in range(3):
+        Hj = H.clone()
+        Hj[..., :, j] = b
+        cols.append(_det3(Hj))
+    det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
+    return torch.stack(cols, dim=-1) / det[..., None]
+
+
+def _project_with_jacobian(proj: torch.Tensor, x: torch.Tensor):
+    """Pinhole projection of x [B, K, 3] into every view of proj
+    [B, 1, V, 3, 4] and its 2x3 Jacobian in closed form:
+    (u, v) = (a, b) / c with (a, b, c) = P [x, 1], d(u, v)/dx_i =
+    (P_0i - u P_2i, P_1i - v P_2i) / c.  A view with c == 0 projects to
+    (a, b), as geometry.homogeneous_to_euclidean's guard does, and its
+    Jacobian is the one of that branch.  Returns ([B, K, V, 2],
+    [B, K, V, 2, 3])."""
+    homo = geometry.euclidean_to_homogeneous(x)[:, :, None, None, :]  # [B, K, 1, 1, 4]
+    abc = torch.sum(proj * homo, dim=-1)  # [B, K, V, 3]
+    c = abc[..., 2:3]
+    zero = c == 0
+    c = torch.where(zero, torch.ones_like(c), c)
+    uv = abc[..., :2] / c
+    p2 = torch.where(zero[..., None], torch.zeros_like(proj[..., 2:3, :3]), proj[..., 2:3, :3])
+    jac = (proj[..., :2, :3] - uv[..., None] * p2) / c[..., None]
+    return uv, jac
+
+
+def _huber_refine(x0: torch.Tensor, proj: torch.Tensor, points: torch.Tensor,
+                  mask: torch.Tensor, n_iters: int) -> torch.Tensor:
+    """Direct reprojection-error minimization with a Huber loss for every
+    joint of every frame: the JAX package's ``_huber_refine`` written out
+    over [B, K] (reference: utils/triangulation.py:319-337, scipy's
+    least_squares(loss="huber") over the inlier views' half-L2 errors).
+
+    Levenberg-Marquardt with IRLS Huber weights and a fixed ``n_iters``
+    steps: the cost C(x) = 1/2 sum_v rho(r_v^2) mask_v, r_v = 1/2 ||e_v||,
+    rho(z) = z for z <= 1 else 2 sqrt(z) - 1; damping lam * trace(H) / 3,
+    lam from 1e-3, a step kept only if it lowers C (then lam / 10, else
+    lam * 10).  The 2x3 Jacobian is written in closed form
+    (``_project_with_jacobian``) where the JAX package takes ``jacfwd``.
+
+    x0: [B, K, 3]; proj: [B, 1, V, 3, 4]; points: [B, K, V, 2]; mask:
+    [B, K, V], 1.0 for inlier views.  Returns the refined [B, K, 3]."""
+    eps = 1e-12
+    eye = torch.eye(3, dtype=x0.dtype, device=x0.device)
+
+    def cost(e):
+        z = 0.25 * torch.sum(torch.square(e), dim=-1)
+        rho = torch.where(z <= 1.0, z, 2.0 * torch.sqrt(torch.clamp(z, min=eps)) - 1.0)
+        return 0.5 * torch.sum(rho * mask, dim=-1)
+
+    x = x0
+    lam = torch.full(x0.shape[:-1], 1e-3, dtype=x0.dtype, device=x0.device)
+    for _ in range(n_iters):
+        uv, J = _project_with_jacobian(proj, x)
+        e = uv - points  # [B, K, V, 2]
+        # IRLS weight rho'(z): 1 in the quadratic zone, 1 / r beyond the knee.
+        z = 0.25 * torch.sum(torch.square(e), dim=-1)
+        w = torch.where(z <= 1.0, torch.ones_like(z), 1.0 / torch.sqrt(torch.clamp(z, min=eps)))
+        w = w * mask
+        g = torch.sum(J * (e * w[..., None])[..., None], dim=(-3, -2))  # [B, K, 3]
+        H = torch.sum(J[..., :, None] * J[..., None, :] * w[..., None, None, None],
+                      dim=(-4, -3))  # [B, K, 3, 3]
+        diag_scale = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1).sum(-1) / 3.0, min=eps)
+        delta = _solve3(H + (lam * diag_scale)[..., None, None] * eye, -g)
+        x_new = x + delta
+        uv_new, _ = _project_with_jacobian(proj, x_new)
+        better = cost(uv_new - points) < cost(e)
+        x = torch.where(better[..., None], x_new, x)
+        lam = torch.where(better, lam * 0.1, lam * 10.0)
+    return x
+
+
 def _ransac(
     proj: torch.Tensor,
     points: torch.Tensor,
@@ -151,6 +232,8 @@ def _ransac(
     epsilon: float,
     method: str,
     confidence: Optional[torch.Tensor] = None,
+    direct_optimization: bool = False,
+    direct_opt_iters: int = 32,
 ):
     """Fixed-shape RANSAC for every joint of every frame at once: the JAX
     package's ``_ransac_single_joint`` written out over [B, K, P, V].
@@ -164,6 +247,9 @@ def _ransac(
     recomputed on the winning set (utils/triangulation.py:284-316).  With
     `confidence`, the refit is weighted least squares (rows scaled by
     sqrt(conf)); selection and the reported error and count are unchanged.
+    ``direct_optimization`` refines the refit on the winning set's views
+    (``_huber_refine``, unweighted) and the error is the refined point's
+    (utils/triangulation.py:319-337).
     """
     num_views = proj.shape[1]
     proj_bk = proj[:, None]  # [B, 1, V, 3, 4]
@@ -194,6 +280,8 @@ def _ransac(
     if confidence is not None:
         refit_w = best_mask * torch.sqrt(torch.clamp(confidence, min=1e-3))
     keypoints_3d = dlt_triangulate(proj_bk, points, weights=refit_w, method=method)
+    if direct_optimization:
+        keypoints_3d = _huber_refine(keypoints_3d, proj_bk, points, best_mask, direct_opt_iters)
     final_err = geometry.reprojection_error(
         keypoints_3d[..., None, :],  # [B, K, 1, 3]
         points[..., None, :],  # [B, K, V, 1, 2]
@@ -216,6 +304,8 @@ def triangulate_frames(
     epsilon: float = 5.0,
     method: str = "power",
     confidence_weighted: bool = False,
+    direct_optimization: bool = False,
+    direct_opt_iters: int = 32,
 ) -> Dict[str, torch.Tensor]:
     """Triangulate a whole batch of multi-view frames.
 
@@ -247,7 +337,8 @@ def triangulate_frames(
         # normalized per joint so the weighting is scale-invariant.
         conf = peaks.transpose(1, 2)  # [B, K, V]
         conf = conf / torch.clamp(torch.amax(conf, dim=-1, keepdim=True), min=1e-6)
-    kp3d, err, inlier = _ransac(proj_matrices, points_kv, pairs, epsilon, method, conf)
+    kp3d, err, inlier = _ransac(proj_matrices, points_kv, pairs, epsilon, method, conf,
+                                direct_optimization, direct_opt_iters)
 
     validf = valid_joints.to(torch.float32)
     kp3d = kp3d * validf[..., None]

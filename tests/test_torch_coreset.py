@@ -7,8 +7,8 @@ expanded ||x||^2 + ||c||^2 - 2 x.c form (sqrt(eps) ~ 4e-3).
 
 The CUDA kernel cannot run here, so its launch plan is tested directly and
 a Python model of its work split (clusters of rows, mask chunks compacted
-in order, each rank's slice in tiles of warp groups, the cluster min) is
-held to the plain version."""
+in order, each rank's slice in tiles of warp groups, each tile walked over
+the feature axis in pieces, the cluster min) is held to the plain version."""
 
 import os
 import re
@@ -101,6 +101,23 @@ def test_coreset_class_matches_jax():
     )
 
 
+@pytest.mark.parametrize("d", [32, 200])
+def test_coreset_class_with_features_matches_jax(d):
+    """AL.CORESET_FEATURES=EMBEDDING: explicit [n_obs, d] features (HRNet-W32's
+    32-wide and a wider embedding) pick the same guids as the JAX CoreSet."""
+    rng = np.random.default_rng(d)
+    sal = {"s%03d" % i: rng.normal(size=(19, 3)) for i in range(80)}
+    al = {"a%03d" % i: rng.normal(size=(19, 3)) for i in range(20)}
+    feats = rng.normal(size=(100, d)).astype(np.float32)
+    got = coreset.CoreSet(sal, al, 2, device="cpu", features=feats).select_batch(12)
+    ref = jax_coreset.CoreSet(sal, al, joint_root_index=2, features=feats).select_batch(12)
+    assert got == ref and len(set(got)) == 12 and all(g.startswith("s") for g in got)
+    # A CPU tensor keeps its device (no card needed); a wrong row count raises.
+    assert coreset.CoreSet(sal, al, 2, features=torch.from_numpy(feats)).select_batch(12) == ref
+    with pytest.raises(ValueError, match="one row for each"):
+        coreset.CoreSet(sal, al, 2, device="cpu", features=feats[:-1])
+
+
 def test_launch_counter_and_input_checks():
     kernels.reset_launch_counts()
     feats, mask = _pool(8, 40, 6, lambda m: m.__setitem__(slice(0, 5), True))
@@ -131,13 +148,15 @@ def _fma_chain(a, b):
 
 def _model_kernel(feats, mask, plan):
     """csrc/pairwise.cu's split of the work: returns the distances and, per
-    (row block, rank), the centers that rank reduced."""
+    (row block, rank), the (feature piece, center) pairs that rank reduced,
+    in order.  Each chain is summed piece by piece, k ascending."""
     n = feats.shape[0]
     out = np.full(n, np.inf)
     visited = {}
+    pieces = pairwise.k_pieces(plan)
     for rb in range(plan.row_blocks):
         rows = feats[rb * pairwise.ROWS:(rb + 1) * pairwise.ROWS]
-        xsq = _fma_chain(rows, rows)
+        xsq = sum(_fma_chain(rows[:, k0:k1], rows[:, k0:k1]) for k0, k1 in pieces)
         cta_min = np.full((plan.cluster, rows.shape[0]), np.inf)
         for rank in range(plan.cluster):
             seen = visited.setdefault((rb, rank), [])
@@ -147,14 +166,19 @@ def _model_kernel(feats, mask, plan):
                 for t_lo in range(lo, hi, plan.center_tile):
                     cnt = min(plan.center_tile, hi - t_lo)
                     for warp in range(pairwise.WARPS):
-                        for g in range(warp * pairwise.GROUP, cnt, pairwise.WARPS * pairwise.GROUP):
-                            group = listed[t_lo + g:t_lo + min(g + pairwise.GROUP, cnt)]
-                            seen.extend(group.tolist())
-                            c = feats[group]
-                            d2 = (xsq[:, None] + _fma_chain(c, c)[None, :]
-                                  - 2.0 * _fma_chain(rows[:, None, :], c[None, :, :]))
-                            cta_min[rank] = np.minimum(cta_min[rank],
-                                                       np.maximum(d2, 0.0).min(axis=1))
+                        g = warp * pairwise.GROUP
+                        if g >= cnt:
+                            continue
+                        group = listed[t_lo + g:t_lo + min(g + pairwise.GROUP, cnt)]
+                        c = feats[group]
+                        csq = np.zeros(len(group))
+                        dot = np.zeros((rows.shape[0], len(group)))
+                        for p, (k0, k1) in enumerate(pieces):
+                            seen.extend((p, int(j)) for j in group)
+                            csq = csq + _fma_chain(c[:, k0:k1], c[:, k0:k1])
+                            dot = dot + _fma_chain(rows[:, None, k0:k1], c[None, :, k0:k1])
+                        d2 = xsq[:, None] + csq[None, :] - 2.0 * dot
+                        cta_min[rank] = np.minimum(cta_min[rank], np.maximum(d2, 0.0).min(axis=1))
         out[rb * pairwise.ROWS:(rb + 1) * pairwise.ROWS] = np.sqrt(cta_min.min(axis=0))
     return out.astype(np.float32), visited
 
@@ -169,6 +193,8 @@ MODEL_CASES = {
     "fewer_than_ranks": (150, 3, SM, lambda m: m.__setitem__([7, 90], True)),
     "d1": (260, 1, SM, lambda m: m.__setitem__(slice(None, None, 5), True)),
     "d512": (70, 512, SM, lambda m: m.__setitem__(slice(0, 50), True)),
+    "d513": (90, 513, SM, lambda m: m.__setitem__(slice(20, 90, 3), True)),
+    "d2048": (70, 2048, SM, lambda m: m.__setitem__(slice(0, 50), True)),
     "chunks": (20000, 2, 8, lambda m: m.__setitem__(slice(8000, 8400), True)),
 }
 
@@ -188,10 +214,11 @@ def test_kernel_model_matches_plain(case):
     if not mask.any():
         assert np.isinf(got).all()
     assert (got[mask] == 0).all()  # the same chains for |x|^2, |c|^2 and x.c
-    centers = np.flatnonzero(mask).tolist()
+    # Each (feature piece, center) pair in exactly one rank, once.
+    want = sorted((p, c) for p in range(plan.k_steps) for c in np.flatnonzero(mask).tolist())
     for rb in range(plan.row_blocks):
         per_rank = [visited[(rb, r)] for r in range(plan.cluster)]
-        assert sorted(sum(per_rank, [])) == centers  # each center in exactly one rank
+        assert sorted(sum(per_rank, [])) == want
 
 
 @pytest.mark.parametrize("count", [0, 1, 3, 7, 8, 200, 2048, 8191])
@@ -205,7 +232,7 @@ def test_rank_slices_partition_the_centers(count, cluster):
 
 
 @pytest.mark.parametrize("n", [1, 31, 2047, 2048, 16384, 100000])
-@pytest.mark.parametrize("d", [1, 57, 512])
+@pytest.mark.parametrize("d", [1, 57, 512, 513, 2047, 2048, 4096])
 @pytest.mark.parametrize("sm", [1, 132])
 def test_launch_plan_fits(n, d, sm):
     plan = pairwise.launch_plan(n, d, sm)
@@ -214,18 +241,41 @@ def test_launch_plan_fits(n, d, sm):
     assert plan.cluster in (1, 2, 4, 8)
     assert plan.cluster == 1 or plan.grid <= pairwise.CTAS_PER_SM * sm
     assert plan.smem_bytes <= pairwise.SMEM_BLOCK
-    assert plan.center_tile % pairwise.GROUP == 0 and 0 < plan.center_tile <= pairwise.MAX_TILE
+    assert plan.center_tile == pairwise.TILE == pairwise.WARPS * pairwise.GROUP
     assert plan.tile_stride % 4 == 0 and plan.tile_stride >= plan.center_tile
     assert plan.chunk % pairwise.SCAN == 0 and plan.chunk <= pairwise.MASK_CHUNK
+    assert plan.k_width == min(d, pairwise.K_WIDTH)
+    assert plan.k_steps == -(-d // plan.k_width)  # the C entry point's check
 
 
 def test_launch_plan_at_bench_width():
     plan = pairwise.launch_plan(2048, 57, SM)
     assert (plan.row_blocks, plan.cluster, plan.grid) == (64, 4, 256)
-    assert plan.center_tile == pairwise.MAX_TILE and plan.chunk == pairwise.SCAN
+    assert plan.center_tile == pairwise.TILE and plan.chunk == pairwise.SCAN
+    assert (plan.k_width, plan.k_steps) == (57, 1)  # rows staged once, whole
     big = pairwise.launch_plan(16384, 57, SM)
     assert (big.row_blocks, big.cluster, big.chunk) == (512, 1, pairwise.MASK_CHUNK)
-    assert big.smem_bytes <= 48 * 1024  # four CTAs fit an SM
+    assert 4 * (big.smem_bytes + 1024) <= 233472  # four CTAs fit an SM
+
+
+@pytest.mark.parametrize("d", [513, 2047, 2048, 4096])
+def test_feature_pieces_cover_the_axis_once(d):
+    """The chunked walk: pieces of K_WIDTH floats, k ascending, covering
+    [0, d) once; shared memory independent of d; three CTAs fit an SM."""
+    plan = pairwise.launch_plan(2048, d, SM)
+    pieces = pairwise.k_pieces(plan)
+    assert len(pieces) == plan.k_steps and pieces[0][0] == 0 and pieces[-1][1] == d
+    assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+    assert all(0 < k1 - k0 <= pairwise.K_WIDTH for k0, k1 in pieces)
+    assert plan.smem_bytes == pairwise.launch_plan(2048, pairwise.K_WIDTH, SM).smem_bytes
+    assert 3 * (plan.smem_bytes + 1024) <= 233472
+
+
+def test_wide_features_have_no_width_limit():
+    """Any width is planned (the TPU kernel takes any d); only d < 1 is refused."""
+    assert pairwise.launch_plan(4, 65536, SM).k_steps == 65536 // pairwise.K_WIDTH
+    with pytest.raises(ValueError):
+        pairwise.launch_plan(4, 0, SM)
 
 
 def test_c_plan_struct_and_constants_match():

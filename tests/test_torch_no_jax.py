@@ -40,9 +40,9 @@ def _imported_roots(path):
 def test_port_has_the_expected_modules():
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     for name in ("config", "engine", "device", "ops/geometry", "ops/heatmap",
-                 "ops/triangulate", "ops/coreset", "models/pose_resnet",
-                 "models/convert", "models/quantize", "ops/int8", "kernels/decode",
-                 "kernels/pairwise", "kernels/deconv", "kernels/_build"):
+                 "ops/triangulate", "ops/coreset", "ops/uncertainty", "models/pose_resnet",
+                 "models/hrnet", "models/convert", "models/quantize", "ops/int8",
+                 "kernels/decode", "kernels/pairwise", "kernels/deconv", "kernels/_build"):
         assert "multi_view_active_learning_tpu_torch/%s.py" % name in rel
 
 
@@ -85,10 +85,25 @@ SCRIPT = textwrap.dedent(
     valid = np.ones((1, 3), bool)
     pairs = engine.pairs(3)
     gt = np.zeros((1, 3, 3), np.float32)
-    for strategy in ("TRIANGULATION", "CORESET"):
+    for strategy in ("TRIANGULATION", "CORESET", "MPE", "HP", "BSB"):
         out = engine.score_step(images, proj, valid, pairs, gt, al_strategy=strategy)
         assert out["keypoints_3d"].shape == (1, 3, 3)
     engine.eval_step(images, proj, valid, pairs)
+    # A narrow HRNet, int8, with direct optimization and the EMBEDDING features.
+    cfg = get_default_configs()
+    cfg.DATA.NUM_JOINTS = 3
+    cfg.POSE_ESTIMATOR.TYPE = "HRNET"
+    for stage, n in ((cfg.POSE_ESTIMATOR.HRNET.STAGE2, 2), (cfg.POSE_ESTIMATOR.HRNET.STAGE3, 3),
+                     (cfg.POSE_ESTIMATOR.HRNET.STAGE4, 4)):
+        stage.NUM_MODULES, stage.NUM_BLOCKS = 1, [1] * n
+        stage.NUM_CHANNELS = [8 * 2 ** b for b in range(n)]
+    cfg.TPU.INT8_SCORING_HRNET = True
+    cfg.AL.DIRECT_OPTIMIZATION = True
+    hrnet = Engine(cfg, device="cpu")
+    assert hrnet.use_int8
+    out = hrnet.score_step(images, proj, valid, pairs, gt, int8_scales=hrnet.int8_calibrate(images))
+    assert out["keypoints_3d"].shape == (1, 3, 3)
+    assert hrnet.embed_step(images).shape == (1, 8)
     # The default configuration: the int8 backbone, here with K4's head.
     cfg = get_default_configs()
     cfg.DATA.NUM_JOINTS = 3

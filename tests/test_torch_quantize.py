@@ -255,3 +255,93 @@ def test_scales_from_jax():
     assert set(got) == set(table)
     assert all(v.dtype == torch.float32 and v.shape == () for v in got.values())
     assert float(got["stem"]) == float(np.float32(0.03))
+
+
+# -- HRNet: the int8 forward of a narrow HRNet against the JAX package's ----
+
+HRNET_NARROW = dict(stage2=(1, 2, "BASIC", (1, 1), (8, 16)),
+                    stage3=(2, 3, "BASIC", (1, 1, 1), (8, 16, 32)),
+                    stage4=(1, 4, "BASIC", (1, 1, 1, 1), (8, 16, 32, 64)))
+
+
+@pytest.fixture(scope="module")
+def hrnet():
+    """(flax params, stats, port state dict, images, the JAX int8 forward
+    with dynamic scales and its recorded table) of a narrow HRNet."""
+    from multi_view_active_learning_tpu.models.hrnet import PoseHighResolutionNet as FlaxHRNet
+
+    model = FlaxHRNet(num_joints=4, **HRNET_NARROW)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                                               train=False))
+    zeros = jax_convert.flax_to_torch_state_dict(
+        jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes["params"]),
+        jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes["batch_stats"]),
+        "HRNET")
+    values = golden_fill_values(list(zeros), [a.shape for a in zeros.values()], 13)
+    params, stats = jax_convert.torch_state_dict_to_flax(values, "HRNET")
+    x = np.random.default_rng(2).normal(size=(2, 64, 64, 3)).astype(np.float32)
+    out, table = jq.quantized_hrnet_forward(params, stats, jnp.asarray(x), collect_scales=True,
+                                            **HRNET_NARROW)
+    return dict(params=params, stats=stats, sd=from_flax(params, stats, "HRNET"), x=x,
+                ref=np.asarray(out), table={k: np.asarray(v) for k, v in table.items()})
+
+
+def _port_hrnet(h, **kw):
+    qp = tq.quantize_state_dict(h["sd"], 0, model_type="HRNET")
+    out = tq.quantized_hrnet_forward(qp, torch.from_numpy(h["x"]), final_conv_kernel=1,
+                                     **HRNET_NARROW, **kw)
+    if kw.get("collect_scales"):
+        out, table = out
+        return out.permute(0, 2, 3, 1).numpy(), table
+    return out.permute(0, 2, 3, 1).numpy()
+
+
+def test_hrnet_int8_dynamic_scales_matches_jax(hrnet):
+    got = _port_hrnet(hrnet)
+    assert got.shape == hrnet["ref"].shape == (2, 16, 16, 4)
+    cos, agree = _agreement(got, hrnet["ref"])
+    assert cos > 0.999 and agree >= 0.95, (cos, agree)
+
+
+def test_hrnet_scale_table_keys_and_values_match_jax(hrnet):
+    _, table = _port_hrnet(hrnet, collect_scales=True)
+    ref = hrnet["table"]
+    assert set(table) == set(ref)
+    for key in ("stem1", "stem2", "layer1_0/down", "transition1_0", "transition1_1_0",
+                "transition3_3_0", "stage2_module0/branch1_block0/conv2", "stage3_module1/fuse0_2",
+                "stage3_module1/fuse2_0_1", "stage4_module0/fuse0_3"):
+        assert key in table, key
+    for name, value in table.items():
+        np.testing.assert_allclose(value.numpy(), ref[name], rtol=1e-5)
+
+
+def test_hrnet_int8_static_jax_table_matches_jax(hrnet):
+    table = hrnet["table"]
+    ref = np.asarray(jq.quantized_hrnet_forward(
+        hrnet["params"], hrnet["stats"], jnp.asarray(hrnet["x"]),
+        act_scales={k: jnp.asarray(v) for k, v in table.items()}, **HRNET_NARROW))
+    got = _port_hrnet(hrnet, act_scales=scales_from_jax(table))
+    cos, agree = _agreement(got, ref)
+    assert cos > 0.999 and agree >= 0.95, (cos, agree)
+
+
+def test_hrnet_int8_meets_the_jax_bar_against_float(hrnet):
+    """tests/test_quantize.py:153: cosine > 0.99 against the float forward."""
+    from multi_view_active_learning_tpu_torch.models import PoseHighResolutionNet
+
+    model = PoseHighResolutionNet(4, **HRNET_NARROW).eval()
+    model.load_state_dict(hrnet["sd"], strict=True)
+    with torch.no_grad():
+        flt = model(torch.from_numpy(np.ascontiguousarray(hrnet["x"].transpose(0, 3, 1, 2))))
+    cos, _ = _agreement(_port_hrnet(hrnet), flt.permute(0, 2, 3, 1).numpy())
+    assert cos > 0.99, cos
+
+
+def test_hrnet_quantize_state_dict_contents(hrnet):
+    qp = tq.quantize_state_dict(hrnet["sd"], 0, model_type="HRNET")
+    assert qp["conv1.wq"].shape == (64, 3, 3, 3) and qp["conv1.wq"].dtype == torch.int8
+    assert qp["stage3.1.fuse_layers.2.0.1.0.wq"].shape == (32, 3, 3, 8)  # [Cout, k, k, Cin]
+    assert qp["stage2.0.fuse_layers.0.1.1.scale"].shape == (8,)
+    assert qp["transition3.3.0.0.ws"].shape == (64,)
+    assert qp["final_layer.weight"].dtype == torch.float32
+    assert not any(k.startswith("final_layer") and k.endswith(".wq") for k in qp)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's scoring step on one CUDA card.
 
-    python3 tools/profile_scoring_torch.py [--steps 3] [--top 8]
+    python3 tools/profile_scoring_torch.py [--model POSE_RESNET|HRNET] [--steps 3] [--top 8]
 
 Drives ``Engine.score_step`` at chip_smoke.py's bench width (B=4 frames x
-V=31 views of 256x256 crops, K=19, 64 RANSAC pairs, PoseResNet-50, seeded
-random weights) on four paths: float bf16 with the standard head, the int8
+V=31 views of 256x256 crops, K=19, 64 RANSAC pairs, seeded random weights).
+PoseResNet-50 on four paths: float bf16 with the standard head, the int8
 backbone (the default configuration), int8 with the K4 head, and bf16 with
-the K3 head.  The int8 paths are calibrated on the batch first.  Each path
+the K3 head.  HRNet-W32 (``--model HRNET``) on four: float bf16 scoring
+TRIANGULATION, MPE, and TRIANGULATION with AL.DIRECT_OPTIMIZATION, and the
+int8 backbone (TPU.INT8_SCORING_HRNET).  The int8 paths are calibrated on
+the batch first.  Each path
 runs `--steps` host-timed steps, then `--steps` steps under torch.profiler
 (CPU and CUDA activity).  Prints one JSON line per path: the host step
 time, the device kernel time per step and its share of the step (the rest
@@ -35,6 +38,7 @@ CLASSES = (
     ("convolution (cuDNN)", ("fprop", "dgrad", "conv", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "imma", "xmma", "cutlass", "gemv", "sm90_")),
     ("copy / index / cat", ("copy", "cat", "index", "gather", "scatter", "pad")),
+    ("pooling", ("max_pool",)),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
@@ -54,12 +58,12 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_path(engine, args, scales, steps, top):
+def profile_path(engine, args, scales, steps, top, strategy="TRIANGULATION"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def step():
-        return engine.score_step(*args, int8_scales=scales)
+        return engine.score_step(*args, al_strategy=strategy, int8_scales=scales)
 
     step()
     torch.cuda.synchronize()
@@ -91,6 +95,7 @@ def profile_path(engine, args, scales, steps, top):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("POSE_RESNET", "HRNET"), default="POSE_RESNET")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=8)
     opts = parser.parse_args()
@@ -107,7 +112,16 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = cs.phase_device()
-    state_dict = cs.random_state_dict(PoseResNet(cs.JOINTS, cs.DEPTH), seed=7)
+    if opts.model == "HRNET":
+        state_dict = cs.hrnet_state_dict()
+        # name: (TPU options, AL options, strategy)
+        paths = {"float_bf16": ({}, None, "TRIANGULATION"), "float_bf16_mpe": ({}, None, "MPE"),
+                 "float_bf16_direct": ({}, dict(DIRECT_OPTIMIZATION=True), "TRIANGULATION"),
+                 "int8": (dict(INT8_SCORING=True, INT8_SCORING_HRNET=True), None, "TRIANGULATION")}
+    else:
+        state_dict = cs.random_state_dict(PoseResNet(cs.JOINTS, cs.DEPTH), seed=7)
+        paths = {"float_bf16": ({}, None, "TRIANGULATION"),
+                 **{name: (tpu, None, "TRIANGULATION") for name, (tpu, _) in cs.PATHS.items()}}
     rng = np.random.default_rng(4)
     images = torch.from_numpy(
         rng.integers(0, 256, size=(cs.BATCH, cs.VIEWS, cs.IMG, cs.IMG, 3)).astype(np.uint8)).to(dev)
@@ -115,14 +129,16 @@ def main() -> int:
         cs.make_ring_cameras(cs.VIEWS, img=cs.IMG), (cs.BATCH, cs.VIEWS, 3, 4)).copy()).to(dev)
     valid = torch.ones((cs.BATCH, cs.JOINTS), dtype=torch.bool, device=dev)
     gt = torch.from_numpy(rng.normal(scale=30.0, size=(cs.BATCH, cs.JOINTS, 3)).astype(np.float32)).to(dev)
-    paths = {"float_bf16": {}, **{name: tpu for name, (tpu, _) in cs.PATHS.items()}}
-    for name, tpu in paths.items():
-        engine = cs._engine("bfloat16", dev, state_dict, **tpu)
+    for name, (tpu, al, strategy) in paths.items():
+        engine = cs._engine("bfloat16", dev, state_dict, model=opts.model, al=al, **tpu)
         pairs = torch.from_numpy(engine.pairs(cs.VIEWS)).to(dev)
         scales = engine.int8_calibrate(images)
-        row = profile_path(engine, (images, proj, valid, pairs, gt), scales, opts.steps, opts.top)
-        print(json.dumps({"path": name, "options": tpu, "batch": cs.BATCH, "views": cs.VIEWS,
-                          "img": cs.IMG, "depth": cs.DEPTH, "device": smi, **row}), flush=True)
+        row = profile_path(engine, (images, proj, valid, pairs, gt), scales, opts.steps, opts.top,
+                           strategy)
+        print(json.dumps({"path": name, "model": opts.model, "options": tpu, "al": al,
+                          "strategy": strategy, "batch": cs.BATCH, "views": cs.VIEWS, "img": cs.IMG,
+                          "depth": cs.DEPTH if opts.model == "POSE_RESNET" else None,
+                          "device": smi, **row}), flush=True)
         del engine
     return 0
 
