@@ -21,13 +21,25 @@ with K3; HRNet-W32 in bf16 for TRIANGULATION, MPE, HP, BSB (AVG and STD)
 and AL.DIRECT_OPTIMIZATION, its uncertainty metrics on the card against the
 CPU, and its int8 path (TPU.INT8_SCORING_HRNET); and PoseResNet-50's CORESET
 with AL.CORESET_FEATURES=EMBEDDING, whose k-center picks on a 2048 x 2048
-pool must equal the plain CPU run's.  The kernels' launch counters are set
-to 0 before each path and read after it.
+pool must equal the plain CPU run's.  Last, the pool sweep and the AL step
+through ``ActiveLearningStrategy`` (``phase_pool_sweep``): on the golden
+tree the card's sal_dict and guid logs equal the CPU's and the reference's
+goldens (it prints whether the tree matched theirs), and so do CORESET
+steps on POSE and EMBEDDING features; then bench.py's 64-frame x 31-view
+pool with decode workers prints cold, warm and bare-step frames/s, holds
+the warm sweep's sal_dict to the cold one's and to the bare steps', and K2
+to its plain version on a full-width CORESET step's own features.  The
+kernels' launch counters are set to 0 before each path and read after it;
+the ``kernels`` line also gives K1's launches in a warm sweep and K2's in
+the full-width CORESET step (``sweep_launches``).
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
 nonzero; without a CUDA device it exits nonzero and prints no result.
+Before the last lines, and on any failure, it stops every process it
+started (decode workers, their forkserver, multiprocessing's resource
+tracker) and waits for them; a child still alive then fails the run.
 Imports nothing of JAX.
 """
 
@@ -108,6 +120,61 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _child_processes():
+    """(pid, state, command) of every child of this process, zombies
+    included, read from /proc."""
+    children = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % pid) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open("/proc/%s/cmdline" % pid, "rb") as f:
+                command = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # exited meanwhile
+            continue
+        if int(fields[1]) == os.getpid():
+            children.append((int(pid), fields[0], command[:120]))
+    return children
+
+
+def stop_child_processes(timeout_s=30.0):
+    """Stop every process this run started and wait for it: the decode
+    workers and their forkserver, then multiprocessing's resource tracker,
+    which exits once nothing holds its pipe.  A child still alive after
+    `timeout_s` is killed and returned, so that the run fails instead of
+    leaving it behind."""
+    import signal
+
+    pipeline = sys.modules.get("multi_view_active_learning_tpu_torch.data.pipeline")
+    if pipeline is not None:
+        pipeline.stop_decode_processes()
+    tracker = sys.modules.get("multiprocessing.resource_tracker")
+    if tracker is not None and tracker._resource_tracker._fd is not None:
+        # ResourceTracker._stop without its unbounded wait: closing the
+        # pipe asks the tracker to exit; the loop below reaps it.
+        os.close(tracker._resource_tracker._fd)
+        tracker._resource_tracker._fd = tracker._resource_tracker._pid = None
+    deadline = time.monotonic() + timeout_s
+    left = _child_processes()
+    while left and time.monotonic() < deadline:
+        try:
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass
+        except ChildProcessError:
+            pass
+        time.sleep(0.05)
+        left = _child_processes()
+    for pid, _, _ in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return left
 
 
 def golden_fill_values(names, shapes, seed):
@@ -1166,12 +1233,462 @@ def phase_embedding(dev, ctx):
          coreset_launches=pick_launches)
 
 
-def main() -> int:
+# The pool sweep (bench.py's pool mode, bench.py:57-60): a synthetic pool
+# of 64 frames x 31 cameras, PoseResNet-50, B=4, two decode workers, the
+# native decoder.
+SWEEP_FRAMES, SWEEP_WORKERS = 64, 2
+SAL_GOLDENS = os.path.join(REPO, "tests", "fixtures", "sal_dict_goldens.json")
+# Frames selected and pseudo-labeled a step: on the golden tree, and at
+# full width.
+GOLDEN_AL, GOLDEN_SAL, SWEEP_AL, SWEEP_SAL = 2, 2, 8, 8
+# sal_dict against sal_dict (tests/test_sal_parity.py:185-210): inlier
+# counts exact, metrics rel / abs 1e-3, keypoints rtol 1e-2 / atol 5e-2.
+SAL_TOL, KP_RTOL, KP_ATOL = 1e-3, 1e-2, 5e-2
+
+
+def _sweep_cfg(root, joints, log_dir, **options):
+    """The sweep's configuration: the default one on a synthetic tree, with
+    PoseResNet-50, TRIANGULATION and `options` given as {"NODE__KEY": value}."""
+    from multi_view_active_learning_tpu_torch.config import get_default_configs
+
+    cfg = get_default_configs()
+    cfg.DATA.TYPE = "synthetic"
+    cfg.DATA.SYNTHETIC_ROOT = root
+    cfg.DATA.NUM_JOINTS = joints
+    cfg.POSE_ESTIMATOR.NUM_LAYERS = DEPTH
+    cfg.AL.STRATEGY = "TRIANGULATION"  # bench.py's default (the config's is RANDOM)
+    cfg.LOG_DIR = log_dir
+    for dotted, value in options.items():
+        node = cfg
+        *path, leaf = dotted.split("__")
+        for part in path:
+            node = getattr(node, part)
+        setattr(node, leaf, value)
+    return cfg
+
+
+def _sal_dict_err(got, ref, tag):
+    """The largest difference of sal_dict `got` from `ref` over its
+    tolerance (at most 1 passes); the guids and inlier counts must be
+    equal."""
+    check(set(got["al_metric"]) == set(ref["al_metric"]), "%s: guids differ" % tag)
+    worst = 0.0
+    for guid in ref["al_metric"]:
+        check(got["inlier_count"][guid] == ref["inlier_count"][guid],
+              "%s: inlier counts differ at %s" % (tag, guid))
+        for metric in ("al_metric", "sal_metric", "mkpe"):
+            a, b = got[metric][guid], ref[metric][guid]
+            worst = max(worst, abs(a - b) / (SAL_TOL + SAL_TOL * abs(b)))
+        a = np.asarray(got["pred_3d_keypoints"][guid])
+        b = np.asarray(ref["pred_3d_keypoints"][guid])
+        worst = max(worst, float(np.max(np.abs(a - b) / (KP_ATOL + KP_RTOL * np.abs(b)))))
+    check(worst <= 1.0, "%s: sal_dict off by %g of its tolerance" % (tag, worst))
+    return worst
+
+
+def _logs(cfg):
+    d = os.path.join(cfg.LOG_DIR, cfg.EXPR_NAME)
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _first_jpeg_checksum(tree):
+    import hashlib
+
+    first = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree) for f in fs
+                   if f.endswith(".jpg"))[0]
+    with open(first, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+class _CoreSetSpy:
+    """Stands in for the strategy module's `coreset_ops` while a step runs:
+    builds the real CoreSet and keeps it, so the features K2 ranked can be
+    read back."""
+
+    def __init__(self, ops):
+        self.ops, self.built = ops, []
+
+    def CoreSet(self, *args, **kwargs):
+        self.built.append(self.ops.CoreSet(*args, **kwargs))
+        return self.built[-1]
+
+
+def _coreset_step(strategy, pool, al_frames, state):
+    """sample_next_batch at iteration 1 (after a random iteration 0) with
+    the launch counters set to 0 just before it: (launches, seconds, the
+    CoreSet it ranked with)."""
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch import strategy as strategy_mod
+
+    strategy.sample_next_batch(pool, al_frames, 0, state, 0)
+    spy = _CoreSetSpy(strategy_mod.coreset_ops)
+    strategy_mod.coreset_ops = spy
+    try:
+        if strategy.device.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        strategy.sample_next_batch(pool, al_frames, 0, state, 1)
+        if strategy.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        strategy_mod.coreset_ops = spy.ops
+    check(len(spy.built) == 1, "CORESET step built %d CoreSets" % len(spy.built))
+    return launches, seconds, spy.built[0]
+
+
+def _coreset_k2(cs, dev, tag, float64_ref=False):
+    """K2 against its plain version on the card, on the features and
+    labeled mask a CORESET step gave it (CoreSet.select_batch's mask: the
+    rows after the candidates are centers)."""
+    import torch
+    from multi_view_active_learning_tpu_torch.kernels import pairwise
+
+    feats = torch.as_tensor(cs.features, dtype=torch.float32).to(dev).contiguous()
+    mask = torch.zeros((cs.n_obs,), dtype=torch.bool, device=dev)
+    mask[cs.n_sal:] = True
+    _, err = _k2_check(pairwise, feats, mask, tag, float64_ref=float64_ref)
+    return dict(shape=list(feats.shape), centers=cs.n_obs - cs.n_sal, max_abs_err=err)
+
+
+def _greedy_gaps(features, n_sal, picks):
+    """k-center greedy in float64 (labeled rows after the first `n_sal`):
+    at each of `picks` steps, the winner's distance to its nearest center
+    less the runner-up's."""
+    x = np.asarray(features, np.float64)
+    dist = np.linalg.norm(x[:n_sal, None] - x[None, n_sal:], axis=-1).min(axis=1)
+    gaps = []
+    for _ in range(picks):
+        order = np.argsort(-dist, kind="stable")
+        gaps.append(float(dist[order[0]] - dist[order[1]]))
+        dist = np.minimum(dist, np.linalg.norm(x[:n_sal] - x[order[0]], axis=-1))
+    return gaps
+
+
+def _golden_sweeps(dev, tmp):
+    """The golden tree (8 frames x 4 cameras) with the golden PoseResNet-50
+    weights, float32 (TF32 off), SVD, the PIL decoder, B=2: the sweep, the
+    AL step (TRIANGULATION under SAL) and CORESET steps under AL on POSE and
+    on EMBEDDING features, on the card and on the CPU.  The card's sal_dict
+    equals the CPU's, and the goldens' when the tree is the goldens' tree;
+    the guid logs are the CPU's (the golden tree's metrics lie at least 0.14
+    apart, far beyond the tolerance) and each step's SAL-DICT-ITER-1 is the
+    CPU's within the tolerance.  In each CORESET step K2 launches once and
+    is held to its plain version on the step's own features and mask, and
+    every greedy pick wins by more than four times the largest difference
+    between the card's features and the CPU's, so equal picks are not luck."""
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch.data import build_dataset
+    from multi_view_active_learning_tpu_torch.data.synthetic import generate_panoptic_tree
+    from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
+
+    with open(SAL_GOLDENS) as f:
+        golden = json.load(f)
+    meta = golden["meta"]
+    joints = meta["num_joints"]
+    tree = generate_panoptic_tree(os.path.join(tmp, "golden_tree"),
+                                  num_train_frames=meta["num_frames"], num_val_frames=2,
+                                  num_joints=joints, num_cameras=meta["num_cams"])
+    matched = _first_jpeg_checksum(tree) == meta["tree_checksum"]
+    w = golden["models"]["pose_resnet50"]["weights"]
+    state = {k: torch.from_numpy(v) for k, v in golden_fill_values(
+        w["names"], w["shapes"], int(meta["weight_seed"])).items()}
+    base = dict(POSE_ESTIMATOR__NUM_LAYERS=50, DATA__USE_NATIVE_LOADER=False,
+                TPU__COMPUTE_DTYPE="float32",
+                TPU__INT8_SCORING=False, TPU__DLT_METHOD="svd", AL__INFERENCE__BATCH_SIZE=2,
+                AL__INFERENCE__NUM_WORKERS=0, EXPR_TYPE="SAL", SAL__INLIER_THRESHOLD=1)
+    runs = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        cfg = _sweep_cfg(tree, joints, os.path.join(tmp, where, "triangulation"), **base)
+        strategy = ActiveLearningStrategy(cfg, device=device)
+        pool = build_dataset(cfg, "train")
+        pool.resample_unlabeled_data()
+        kernels.reset_launch_counts()
+        sal = strategy._compute_sal_dict(pool, state)
+        sweep_launches = kernels.launch_counts()
+        pool = build_dataset(cfg, "train")
+        for iteration in (0, 1):
+            strategy.sample_next_batch(pool, GOLDEN_AL, GOLDEN_SAL, state, iteration)
+        runs[where] = dict(sal=sal, logs=_logs(cfg), sweep_launches=sweep_launches)
+        # CORESET steps under AL, on the triangulated poses and on the
+        # pooled trunk embeddings (`_embed_labeled` and the features'
+        # assembly included).
+        for features in ("POSE", "EMBEDDING"):
+            ccfg = _sweep_cfg(tree, joints, os.path.join(tmp, where, "coreset_" + features),
+                              **dict(base, EXPR_TYPE="AL", AL__STRATEGY="CORESET",
+                                     AL__CORESET_FEATURES=features))
+            launches, _, cs = _coreset_step(ActiveLearningStrategy(ccfg, device=device),
+                                            build_dataset(ccfg, "train"), GOLDEN_AL, state)
+            runs[where][features] = dict(logs=_logs(ccfg), launches=launches, coreset=cs)
+    card, cpu = runs["card"], runs["cpu"]
+    batches = -(-meta["num_frames"] // 2)
+    check(card["sweep_launches"]["fused_decode"] == batches,
+          "golden sweep: K1 launched %s times for %d batches" % (card["sweep_launches"], batches))
+    card_cpu = _sal_dict_err(card["sal"], cpu["sal"], "golden sweep, card against CPU")
+    against_golden = None
+    if matched:
+        gold = golden["models"]["pose_resnet50"]["sal_dicts"]["TRIANGULATION"]
+        against_golden = _sal_dict_err(card["sal"], gold, "golden sweep, card against the goldens")
+    expected = ["SAL-DICT-ITER-1", "SAL-GUID-ITER-1", "SAMPLED-GUID-ITER-0", "SAMPLED-GUID-ITER-1"]
+    check(sorted(card["logs"]) == sorted(cpu["logs"]) == expected,
+          "AL step logs %s / %s" % (sorted(card["logs"]), sorted(cpu["logs"])))
+    for name in expected[1:]:
+        check(card["logs"][name] == cpu["logs"][name], "%s differs from the CPU's" % name)
+    _sal_dict_err(json.loads(card["logs"]["SAL-DICT-ITER-1"]),
+                  json.loads(cpu["logs"]["SAL-DICT-ITER-1"]), "SAL-DICT-ITER-1")
+    coreset = {}
+    for features in ("POSE", "EMBEDDING"):
+        tag = "CORESET %s step" % features
+        got, ref = card[features], cpu[features]
+        check(got["launches"]["min_distance_to_centers"] == 1,
+              "%s: K2 launches %s" % (tag, got["launches"]))
+        k2 = _coreset_k2(got["coreset"], dev, tag, float64_ref=features == "EMBEDDING")
+        # The features the card ranked are the CPU's, and each greedy
+        # pick wins by more than that difference can move a distance.
+        x, y = (np.asarray(torch.as_tensor(run["coreset"].features).cpu()) for run in (got, ref))
+        check(x.shape == y.shape and got["coreset"].n_sal == ref["coreset"].n_sal,
+              "%s: features %s against the CPU's %s" % (tag, x.shape, y.shape))
+        row_err = float(np.linalg.norm(x.astype(np.float64) - y, axis=-1).max())
+        gaps = _greedy_gaps(x, got["coreset"].n_sal, GOLDEN_AL)
+        check(min(gaps) > 4 * row_err,
+              "%s: greedy gaps %s within 4 x %g of the CPU's features" % (tag, gaps, row_err))
+        expected = ["SAL-DICT-ITER-1", "SAMPLED-GUID-ITER-0", "SAMPLED-GUID-ITER-1"]
+        check(sorted(got["logs"]) == sorted(ref["logs"]) == expected,
+              "%s logs %s / %s" % (tag, sorted(got["logs"]), sorted(ref["logs"])))
+        for name in expected[1:]:
+            check(got["logs"][name] == ref["logs"][name], "%s: %s differs from the CPU's" % (tag, name))
+        err = _sal_dict_err(json.loads(got["logs"]["SAL-DICT-ITER-1"]),
+                            json.loads(ref["logs"]["SAL-DICT-ITER-1"]), tag + " SAL-DICT-ITER-1")
+        coreset[features] = dict(sampled=json.loads(got["logs"]["SAMPLED-GUID-ITER-1"]),
+                                 launches=got["launches"], k2=k2, feature_row_err=row_err,
+                                 greedy_gaps=gaps, sal_dict_err_of_tol=err)
+    return dict(golden="matched" if matched else "tree differs", card_cpu_err_of_tol=card_cpu,
+                card_golden_err_of_tol=against_golden,
+                sampled=json.loads(card["logs"]["SAMPLED-GUID-ITER-1"]),
+                sal_guids=json.loads(card["logs"]["SAL-GUID-ITER-1"]),
+                sweep_launches=card["sweep_launches"], coreset=coreset)
+
+
+def _keyed(outs, keys):
+    """score_step outputs as a sal_dict, keyed by (guids, frame_valid) a
+    batch as _compute_sal_dict keys them."""
+    sal = {metric: {} for metric in ("al_metric", "sal_metric", "inlier_count",
+                                     "pred_3d_keypoints", "mkpe")}
+    for out, (guids, frame_valid) in zip(outs, keys):
+        out = {name: value.cpu().numpy() for name, value in out.items()}
+        for i, guid in enumerate(guids):
+            if frame_valid[i]:
+                for metric in ("al_metric", "sal_metric", "inlier_count", "mkpe"):
+                    sal[metric][guid] = float(out[metric][i])
+                sal["pred_3d_keypoints"][guid] = out["keypoints_3d"][i].tolist()
+    return sal
+
+
+def _timed_sweep(strategy, pool, state):
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sal = strategy._compute_sal_dict(pool, state)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, sal
+
+
+def _check_sweep(sal, frames, tag):
+    check(len(sal["al_metric"]) == frames, "%s: %d frames scored of %d"
+          % (tag, len(sal["al_metric"]), frames))
+    for metric in ("al_metric", "sal_metric", "mkpe"):
+        check(all(np.isfinite(v) for v in sal[metric].values()), "%s: %s not finite" % (tag, metric))
+    check(all(2 <= v <= VIEWS for v in sal["inlier_count"].values()), "%s: inlier counts" % tag)
+    kp = np.asarray(list(sal["pred_3d_keypoints"].values()))
+    check(kp.shape == (frames, JOINTS, 3) and bool(np.isfinite(kp).all()),
+          "%s: keypoints %s" % (tag, kp.shape))
+
+
+def phase_pool_sweep(dev, ctx):
+    """The port's pool sweep and AL step through `ActiveLearningStrategy`,
+    as users run them.  First on the golden tree against the CPU and the
+    reference's goldens (`_golden_sweeps`).  Then at full width: the
+    bench.py pool (64 frames x 31 cameras, 19 joints), PoseResNet-50 on the
+    main path's weights, B=4, two decode workers and the native decoder, in
+    the default configuration (int8) and in bf16 float: a cold sweep (new
+    workers, started before the clock, and empty caches), a warm one (the
+    launch counters set to 0 before it and read after: K1 once a batch;
+    torch's sync debug mode must flag no synchronizing call in it; its
+    sal_dict is the cold one's), the warm loader alone, and bare
+    score_steps on the same engine and frames already on the card (their
+    outputs keyed by guid give the warm sweep's sal_dict); then
+    sample_next_batch at iteration 0 (random) and 1 (TRIANGULATION under
+    SAL), and a CORESET step (K2 launched once, and held to its plain
+    version on that step's features and mask).  Decode workers must not
+    have initialized CUDA."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch.data import build_dataset, native, pipeline
+    from multi_view_active_learning_tpu_torch.data.synthetic import generate_panoptic_tree
+    from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        golden = _golden_sweeps(dev, tmp)
+        t0 = time.perf_counter()
+        tree = generate_panoptic_tree(os.path.join(tmp, "pool"), num_train_frames=SWEEP_FRAMES,
+                                      num_val_frames=2, num_joints=JOINTS, num_cameras=VIEWS)
+        tree_s = time.perf_counter() - t0
+        state = ctx["state_dict"]
+        batches = -(-SWEEP_FRAMES // BATCH)
+        paths = {}
+        for name, options in (("int8", {}), ("bf16", dict(TPU__INT8_SCORING=False))):
+            cfg = _sweep_cfg(tree, JOINTS, os.path.join(tmp, name),
+                             AL__INFERENCE__BATCH_SIZE=BATCH,
+                             AL__INFERENCE__NUM_WORKERS=SWEEP_WORKERS, **options)
+            strategy = ActiveLearningStrategy(cfg)  # the card: no device given
+            check(strategy.device.type == "cuda" and strategy.engine.use_int8 == (name == "int8"),
+                  "%s: device %s, int8 %s" % (name, strategy.device, strategy.engine.use_int8))
+            pool = build_dataset(cfg, "train")
+            pool.resample_unlabeled_data()
+            # Cold: new workers with empty caches, started (and their
+            # decoder loaded) before the clock, which times the sweep alone.
+            pipeline.shutdown_shared_executors()
+            pipeline.VIEW_CACHE.clear()
+            t0 = time.perf_counter()
+            ex = pipeline._shared_executor(SWEEP_WORKERS)
+            for future in [ex.submit(pipeline.native_decoder_available)
+                           for _ in range(SWEEP_WORKERS)]:
+                future.result()
+            workers_start_s = time.perf_counter() - t0
+            cold_s, sal = _timed_sweep(strategy, pool, state)
+            _check_sweep(sal, SWEEP_FRAMES, name + " cold sweep")
+            kernels.reset_launch_counts()
+            with warnings.catch_warnings(record=True) as syncs:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    warm_s, warm = _timed_sweep(strategy, pool, state)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            launches = kernels.launch_counts()
+            syncs = [str(w.message) for w in syncs
+                     if "called a synchronizing CUDA operation" in str(w.message)]
+            _check_sweep(warm, SWEEP_FRAMES, name + " warm sweep")
+            # The same engine on the same frames: the warm sweep (workers
+            # and caches warm, four batches in flight) gives the cold one's
+            # sal_dict.
+            warm_cold_err = _sal_dict_err(warm, sal, name + " warm sweep against cold")
+            check(not syncs, "%s warm sweep: %d synchronizing calls, the first: %s"
+                  % (name, len(syncs), syncs[:1]))
+            check(launches["fused_decode"] == batches,
+                  "%s sweep: K1 launched %d times for %d batches"
+                  % (name, launches["fused_decode"], batches))
+
+            # The warm loader alone (host prep, no engine), then bare
+            # score_steps on the same engine and frames, on the card.
+            t0 = time.perf_counter()
+            loader_batches = sum(1 for _ in strategy._get_loader(pool, BATCH, SWEEP_WORKERS))
+            loader_warm_s = time.perf_counter() - t0
+            check(loader_batches == batches, "warm loader: %d batches" % loader_batches)
+            engine = strategy.engine
+            inputs, keys = [], []
+            for b in strategy._get_loader(pool, BATCH, 0):
+                inputs.append((strategy._device_images(b), strategy._put(b["proj_matrices"]),
+                               strategy._put(b["joint_valid"]), strategy._put(b["3d_keypoints"])))
+                keys.append((b["guid"], b["frame_valid"]))
+            scales = engine.int8_calibrate(inputs[0][0])
+            pairs = strategy._put(engine.pairs(VIEWS))
+
+            def steps():
+                return [engine.score_step(images, proj, valid, pairs, gt, int8_scales=scales)
+                        for images, proj, valid, gt in inputs]
+
+            bare_ms, _ = _timed_steps(steps, 1, 2)
+            # The bare steps' outputs keyed by guid in this process: the
+            # warm sweep (decode workers, pinned staging, four batches in
+            # flight) must give the same sal_dict.
+            bare_err = _sal_dict_err(warm, _keyed(steps(), keys), name + " warm sweep against bare steps")
+            del inputs
+            paths[name] = dict(
+                workers_start_s=workers_start_s, loader_warm_s=loader_warm_s, cold_s=cold_s,
+                cold_frames_per_s=SWEEP_FRAMES / cold_s, warm_s=warm_s,
+                warm_frames_per_s=SWEEP_FRAMES / warm_s,
+                bare_step_s=bare_ms / 1e3, bare_frames_per_s=SWEEP_FRAMES / (bare_ms / 1e3),
+                host_share_of_warm=1.0 - (bare_ms / 1e3) / warm_s, batches=batches,
+                launches=launches, synchronizing_calls=len(syncs),
+                warm_cold_err_of_tol=warm_cold_err, warm_cold_equal=warm == sal,
+                warm_bare_err_of_tol=bare_err)
+
+            if name == "int8":
+                # The AL step as users run it, then a CORESET step (K2).
+                pool = build_dataset(cfg, "train")
+                for iteration in (0, 1):
+                    strategy.sample_next_batch(pool, SWEEP_AL, SWEEP_SAL, state, iteration)
+                logs = _logs(cfg)
+                check(len(json.loads(logs["SAMPLED-GUID-ITER-0"])) == SWEEP_AL
+                      and len(json.loads(logs["SAMPLED-GUID-ITER-1"])) == SWEEP_AL,
+                      "AL step logs %s" % sorted(logs))
+                step_dict = json.loads(logs["SAL-DICT-ITER-1"])
+                check(len(step_dict["al_metric"]) == SWEEP_FRAMES - SWEEP_AL,
+                      "SAL-DICT-ITER-1 holds %d frames" % len(step_dict["al_metric"]))
+                sal_guids = json.loads(logs.get("SAL-GUID-ITER-1", b"[]"))
+                check(len(sal_guids) <= SWEEP_SAL, "SAL guids %s" % sal_guids)
+                ccfg = _sweep_cfg(tree, JOINTS, os.path.join(tmp, "coreset"),
+                                  AL__INFERENCE__BATCH_SIZE=BATCH,
+                                  AL__INFERENCE__NUM_WORKERS=SWEEP_WORKERS,
+                                  AL__STRATEGY="CORESET")
+                coreset_launches, coreset_s, cs = _coreset_step(
+                    ActiveLearningStrategy(ccfg), build_dataset(ccfg, "train"), SWEEP_AL, state)
+                left = SWEEP_FRAMES - SWEEP_AL
+                check(coreset_launches["fused_decode"] == -(-left // BATCH)
+                      and coreset_launches["min_distance_to_centers"] == 1,
+                      "CORESET step launches %s" % coreset_launches)
+                check(cs.n_sal == left and cs.n_obs == SWEEP_FRAMES,
+                      "CORESET step ranked %d candidates of %d rows" % (cs.n_sal, cs.n_obs))
+                # K2 against its plain version on the step's own features
+                # and mask.
+                k2 = _coreset_k2(cs, dev, "full-width CORESET step")
+                check(len(json.loads(_logs(ccfg)["SAMPLED-GUID-ITER-1"])) == SWEEP_AL,
+                      "CORESET step picks")
+                paths[name]["al_step"] = dict(
+                    logs=sorted(logs), sampled_iter1=json.loads(logs["SAMPLED-GUID-ITER-1"]),
+                    sal_guids=sal_guids, coreset_step_s=coreset_s,
+                    coreset_launches=coreset_launches, coreset_k2=k2)
+
+        # After the parent has used the card: the decode workers never have.
+        ex = pipeline._shared_executor(SWEEP_WORKERS)
+        worker_cuda = [ex.submit(pipeline.cuda_initialized).result() for _ in range(4)]
+        worker_native = ex.submit(pipeline.native_decoder_available).result()
+        check(not any(worker_cuda), "a decode worker initialized CUDA: %s" % worker_cuda)
+    finally:
+        pipeline.shutdown_shared_executors()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("pool_sweep", model="PoseResNet-50", frames=SWEEP_FRAMES, views=VIEWS, img=IMG,
+         joints=JOINTS, batch=BATCH, workers=SWEEP_WORKERS,
+         decoder="native" if native.available() else "PIL",
+         worker_decoder="native" if worker_native else "PIL", worker_cuda_initialized=worker_cuda,
+         tree_s=tree_s, paths=paths, golden_tree=golden,
+         seconds=time.perf_counter() - t_phase)
+    launches = {name: p["launches"] for name, p in paths.items()}
+    launches["coreset"] = paths["int8"]["al_step"]["coreset_launches"]
+    return launches, golden
+
+
+def run_phases():
+    """Every phase in order: (the card's name and power limit, the kernels
+    line's rows, seconds)."""
+    import torch
+
     sys.path.insert(0, REPO)
     from multi_view_active_learning_tpu_torch.ops.triangulate import all_view_pairs
     from multi_view_active_learning_tpu_torch.config import get_default_configs
@@ -1195,12 +1712,31 @@ def main() -> int:
     path_launches = phase_paths(dev, ctx)
     phase_hrnet_path(dev, ctx)
     phase_embedding(dev, ctx)
+    sweep_launches, golden = phase_pool_sweep(dev, ctx)
     # Each kernel's launches on the path that drives it.
     launches["fused_deconv_bn_relu"] = path_launches["bf16_k3"]["fused_deconv_bn_relu"]
     launches["fused_deconv_bn_relu_int8"] = path_launches["int8_k4"]["fused_deconv_bn_relu_int8"]
     for row in rows:
         row["launches"] = launches[row["name"]]
-    emit("done", seconds=time.perf_counter() - t0)
+    # K1 in a warm sweep of the default configuration, K2 in a CORESET step.
+    rows[0]["sweep_launches"] = sweep_launches["int8"]["fused_decode"]
+    rows[1]["sweep_launches"] = sweep_launches["coreset"]["min_distance_to_centers"]
+    return smi, rows, time.perf_counter() - t0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        smi, rows, seconds = run_phases()
+    finally:
+        t0 = time.perf_counter()
+        left = stop_child_processes()
+    check(not left, "processes left running at the end: %s" % left)
+    emit("done", seconds=seconds, children_stopped_s=time.perf_counter() - t0)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,3 +19,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) as a tensor on `device`, without
+    stalling the host on the card: a plain copy from pageable memory
+    synchronizes the stream, so on CUDA the array is staged in pinned memory
+    and copied with ``non_blocking=True``.  PyTorch's pinned allocator keeps
+    the staging buffer from reuse until that copy has run."""
+    t = torch.as_tensor(array)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

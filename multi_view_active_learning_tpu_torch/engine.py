@@ -29,19 +29,19 @@ from typing import Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import resolve_device, to_device
 from .kernels import deconv
 from .models import build_model, compute_dtype
 from .models import quantize
 from .ops import geometry
 from .ops import triangulate as tri
 from .ops import uncertainty
+from .utils import prng
 
 # (config key, value that is not ported, ROADMAP queue item)
 _UNPORTED = (
     ("TPU.SPACE_TO_DEPTH_STEM", True, "Queue A12, exact reformulation options"),
     ("TPU.FAST_DECONV", True, "Queue A12, exact reformulation options"),
-    ("TPU.USE_PALLAS", False, "Queue B1; the port always decodes through its kernel"),
 )
 
 SCORING_STRATEGIES = ("TRIANGULATION", "RANDOM", "CORESET", "MPE", "HP", "BSB")
@@ -139,7 +139,9 @@ class Engine:
         self.use_int8_eval = use_int8_eval(cfg)
         self.int8_float_tail = int8_float_tail(cfg)
         # The port always runs its own kernels, so the heads follow the
-        # options alone (the JAX engine also needs a Pallas backend).
+        # options alone (the JAX engine also needs a Pallas backend), and
+        # TPU.USE_PALLAS=False decodes through K1 all the same: the JAX
+        # package's XLA decode gives the kernel's values.
         self.int8_head = bool(cfg.TPU.INT8_DECONV)
         self.use_pallas_head = bool(cfg.TPU.PALLAS_HEAD) and self.model_type == "POSE_RESNET"
         self._pairs_cache: Dict[int, np.ndarray] = {}
@@ -247,7 +249,7 @@ class Engine:
         pairs,
         gt_keypoints_3d,
         al_strategy: str = "TRIANGULATION",
-        generator: Optional[torch.Generator] = None,
+        key: Optional[np.ndarray] = None,
         int8_scales: Optional[Mapping[str, torch.Tensor]] = None,
         mpe_aggregate: str = "AVG",
         hp_aggregate: str = "AVG",
@@ -257,8 +259,8 @@ class Engine:
 
         images: uint8 [B, V, H, W, 3]; proj_matrices: [B, V, 3, 4];
         joint_valid: [B, K] bool; pairs: [P, 2]; gt_keypoints_3d: [B, K, 3].
-        RANDOM draws from `generator` (a torch.Generator on this device,
-        seeded by the caller); MPE / HP / BSB aggregate over the valid
+        RANDOM draws ``jax.random.uniform(key, (B,))``'s bits from `key`, a
+        threefry key of ``utils.prng`` (padded rows draw too); MPE / HP / BSB aggregate over the valid
         (view, joint) entries by their `*_aggregate` ("AVG" or "STD").  The
         forward is int8 when ``use_int8``, with the static ``int8_scales`` of
         ``int8_calibrate`` if given.  Returns keypoints_3d [B, K, 3],
@@ -268,8 +270,8 @@ class Engine:
         """
         if al_strategy not in SCORING_STRATEGIES:
             raise NotImplementedError("Unknown AL strategy: %s" % al_strategy)
-        if al_strategy == "RANDOM" and generator is None:
-            raise ValueError("the RANDOM strategy needs a seeded torch.Generator")
+        if al_strategy == "RANDOM" and key is None:
+            raise ValueError("the RANDOM strategy needs a PRNG key (utils.prng.PRNGKey)")
         embedding = None
         if al_strategy == "CORESET" and self.cfg.AL.CORESET_FEATURES == "EMBEDDING":
             heatmaps, embedding = self._features_forward(images)
@@ -292,7 +294,7 @@ class Engine:
         )
         B = heatmaps.shape[0]
         if al_strategy == "RANDOM":
-            al_metric = torch.rand((B,), generator=generator, device=self.device)
+            al_metric = to_device(prng.uniform(key, (B,)), self.device)
         elif al_strategy == "TRIANGULATION":
             al_metric = res["metric"]
         elif al_strategy == "MPE":

@@ -1,12 +1,15 @@
 """Camera model and projective geometry.
 
-Host side (numpy): the `Camera` class used to build rigs (reference:
-utils/triangulation.py:25-74, 433-456).  Device side (torch): batched
+Host side (numpy): the `Camera` class used to build rigs and the square
+crop boxes of the data pipeline (reference: utils/triangulation.py:25-134,
+433-456).  Device side (torch): batched
 pinhole projection and homogeneous converters used by the triangulation,
 written over arbitrary leading batch dimensions.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -102,6 +105,53 @@ def project_points_distorted_np(X, K, R, t, kd) -> np.ndarray:
     x[0, :] = K[0, 0] * x[0, :] + K[0, 1] * x[1, :] + K[0, 2]
     x[1, :] = K[1, 0] * x[0, :] + K[1, 1] * x[1, :] + K[1, 2]
     return x.T[:, :2]
+
+
+# ---------------------------------------------------------------------------
+# Bounding-box helpers (host side; reference: utils/triangulation.py:96-134).
+# ---------------------------------------------------------------------------
+
+
+def get_square_bbox(bbox) -> Tuple[int, int, int, int]:
+    """Stretch the short side so the box is square."""
+    left, upper, right, lower = bbox
+    width, height = right - left, lower - upper
+    if width > height:
+        y_center = (upper + lower) // 2
+        upper = y_center - width // 2
+        lower = upper + width
+    else:
+        x_center = (left + right) // 2
+        left = x_center - height // 2
+        right = left + height
+    return left, upper, right, lower
+
+
+def scale_bbox(bbox, scale: float) -> Tuple[int, int, int, int]:
+    left, upper, right, lower = bbox
+    width, height = right - left, lower - upper
+    x_center, y_center = (right + left) // 2, (lower + upper) // 2
+    new_width, new_height = int(scale * width), int(scale * height)
+    new_left = x_center - new_width // 2
+    new_right = new_left + new_width
+    new_upper = y_center - new_height // 2
+    new_lower = new_upper + new_height
+    return new_left, new_upper, new_right, new_lower
+
+
+def crop_image(image: np.ndarray, bbox) -> np.ndarray:
+    """Crop with zero-fill for out-of-bounds regions
+    (reference: utils/triangulation.py:77-93)."""
+    left, upper, right, lower = (int(v) for v in bbox)
+    out_h, out_w = lower - upper, right - left
+    out = np.zeros((out_h, out_w) + image.shape[2:], dtype=image.dtype)
+    src_y0, src_y1 = max(upper, 0), min(lower, image.shape[0])
+    src_x0, src_x1 = max(left, 0), min(right, image.shape[1])
+    if src_y1 > src_y0 and src_x1 > src_x0:
+        out[src_y0 - upper : src_y1 - upper, src_x0 - left : src_x1 - left] = image[
+            src_y0:src_y1, src_x0:src_x1
+        ]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -59,18 +59,25 @@ def _dlt_rows(proj: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return torch.stack([ax, ay], dim=-2)
 
 
+def _det3_of(e) -> torch.Tensor:
+    """Determinant of the 3x3 matrix whose (a, b) entry is ``e(a, b)``."""
+    return (
+        e(0, 0) * (e(1, 1) * e(2, 2) - e(1, 2) * e(2, 1))
+        - e(0, 1) * (e(1, 0) * e(2, 2) - e(1, 2) * e(2, 0))
+        + e(0, 2) * (e(1, 0) * e(2, 1) - e(1, 1) * e(2, 0))
+    )
+
+
 def _det3(m: torch.Tensor) -> torch.Tensor:
     """Determinant of [..., 3, 3]."""
-    return (
-        m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
-        - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
-        + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0])
-    )
+    return _det3_of(lambda a, b: m[..., a, b])
 
 
 def _adjugate4(M: torch.Tensor) -> torch.Tensor:
     """Adjugate of [..., 4, 4] in closed form: adj(M) = det(M) inv(M), the
-    transpose of the 16 signed 3x3 cofactors (elementwise math, no linalg)."""
+    transpose of the 16 signed 3x3 cofactors (elementwise math, no linalg).
+    Each minor is read through integer element views of M: indexing with a
+    list of rows would copy that list to the device, a host sync each time."""
     idx = (0, 1, 2, 3)
     cof_rows = []
     for i in idx:
@@ -78,8 +85,8 @@ def _adjugate4(M: torch.Tensor) -> torch.Tensor:
         cof_row = []
         for j in idx:
             cols = [c for c in idx if c != j]
-            minor = M[..., rows, :][..., :, cols]
-            cof_row.append(((-1.0) ** (i + j)) * _det3(minor))
+            minor = _det3_of(lambda a, b: M[..., rows[a], cols[b]])
+            cof_row.append(((-1.0) ** (i + j)) * minor)
         cof_rows.append(torch.stack(cof_row, dim=-1))
     cof = torch.stack(cof_rows, dim=-2)  # [..., 4, 4] cofactor matrix
     return cof.transpose(-2, -1)

@@ -42,6 +42,7 @@ from multi_view_active_learning_tpu_torch import engine as torch_engine
 from multi_view_active_learning_tpu_torch.config import get_default_configs
 from multi_view_active_learning_tpu_torch.engine import Engine
 from multi_view_active_learning_tpu_torch.models.convert import from_flax
+from multi_view_active_learning_tpu_torch.utils import prng
 
 B, V, K, IMG = 2, 5, 4, 64
 
@@ -168,17 +169,21 @@ def test_bfloat16_close_to_jax(weights):
 
 
 def test_random_strategy_shape_range_and_seed(weights):
+    """RANDOM draws jax.random.uniform(key, (B,)) bit for bit from the
+    port's threefry key, repeats for the same key, and needs a key."""
     port = Engine(_configure(get_default_configs(), "float32"), device="cpu")
     port.load_state_dict(from_flax(*weights))
     images, proj, valid, gt = _inputs()
     pairs = port.pairs(V)
     draws = [
         port.score_step(images, proj, valid, pairs, gt, al_strategy="RANDOM",
-                        generator=torch.Generator().manual_seed(3))["al_metric"]
+                        key=prng.PRNGKey(3))["al_metric"]
         for _ in range(2)
     ]
     assert draws[0].shape == (B,) and ((draws[0] >= 0) & (draws[0] < 1)).all()
     torch.testing.assert_close(draws[0], draws[1])
+    ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(3), (B,)))
+    np.testing.assert_array_equal(draws[0].numpy().view(np.uint32), ref.view(np.uint32))
     with pytest.raises(ValueError):
         port.score_step(images, proj, valid, pairs, gt, al_strategy="RANDOM")
 
@@ -205,6 +210,21 @@ def test_unported_option_raises(key, value):
     setattr(node, leaf, value)
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         Engine(cfg, device="cpu")
+
+
+def test_use_pallas_false_is_accepted(weights):
+    """TPU.USE_PALLAS=False builds, and scores the default's keypoints: the
+    JAX package's XLA decode gives the kernel's values, so the port decodes
+    through K1 either way."""
+    images, proj, valid, gt = _inputs()
+    outs = []
+    for use_pallas in (True, False):
+        port = Engine(_configure(get_default_configs(), "float32", USE_PALLAS=use_pallas),
+                      device="cpu")
+        port.load_state_dict(from_flax(*weights))
+        outs.append(port.score_step(images, proj, valid, port.pairs(V), gt))
+    for key in outs[0]:
+        torch.testing.assert_close(outs[1][key], outs[0][key], rtol=0, atol=0)
 
 
 def test_default_config_raises_on_int8_scoring():

@@ -2,7 +2,8 @@
 of JAX or the JAX package.
 
 An AST scan covers every import statement; a subprocess runs the port's
-CPU path with an import hook that refuses the banned modules, and checks
+CPU path (the engine's steps, and a 2-frame pool sweep with a decode
+worker) with an import hook that refuses the banned modules, and checks
 that none of them was loaded."""
 
 import ast
@@ -42,7 +43,10 @@ def test_port_has_the_expected_modules():
     for name in ("config", "engine", "device", "ops/geometry", "ops/heatmap",
                  "ops/triangulate", "ops/coreset", "ops/uncertainty", "models/pose_resnet",
                  "models/hrnet", "models/convert", "models/quantize", "ops/int8",
-                 "kernels/decode", "kernels/pairwise", "kernels/deconv", "kernels/_build"):
+                 "kernels/decode", "kernels/pairwise", "kernels/deconv", "kernels/_build",
+                 "strategy", "utils/__init__", "utils/storage", "utils/prng", "utils/kmeans",
+                 "ops/image", "data/__init__", "data/pools", "data/panoptic", "data/ih26m",
+                 "data/synthetic", "data/native", "data/pipeline"):
         assert "multi_view_active_learning_tpu_torch/%s.py" % name in rel
 
 
@@ -118,6 +122,34 @@ SCRIPT = textwrap.dedent(
     feats = torch.from_numpy(rng.normal(size=(20, 9)).astype(np.float32))
     labeled = torch.arange(20) >= 15
     assert coreset.k_center_greedy(feats, labeled, 4).shape == (4,)
+    # A 2-frame pool sweep through FrameLoader with a decode worker.
+    import shutil
+    import tempfile
+    from multi_view_active_learning_tpu_torch.data import build_dataset, pipeline
+    from multi_view_active_learning_tpu_torch.data.synthetic import generate_panoptic_tree
+    from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
+
+    tmp = tempfile.mkdtemp()
+    try:
+        cfg = get_default_configs()
+        cfg.DATA.TYPE = "synthetic"
+        cfg.DATA.SYNTHETIC_ROOT = generate_panoptic_tree(
+            tmp, num_train_frames=2, num_val_frames=1, num_joints=3, num_cameras=3)
+        cfg.DATA.NUM_JOINTS = 3
+        cfg.DATA.INPUT_HEIGHT = cfg.DATA.INPUT_WIDTH = 32
+        cfg.POSE_ESTIMATOR.NUM_LAYERS = 18
+        cfg.TPU.INT8_SCORING = False
+        cfg.AL.INFERENCE.NUM_WORKERS = 1
+        cfg.LOG_DIR = tmp
+        strategy = ActiveLearningStrategy(cfg, device="cpu")
+        pool = build_dataset(cfg, "train")
+        pool.resample_unlabeled_data()
+        sal = strategy._compute_sal_dict(pool, None)
+        assert len(sal["al_metric"]) == 2, sal
+        assert not pipeline._shared_executor(1).submit(pipeline.cuda_initialized).result()
+        pipeline.shutdown_shared_executors()
+    finally:
+        shutil.rmtree(tmp)
     loaded = {m for m in sys.modules if m.split(".")[0] in BANNED} - already
     assert not loaded, loaded
     print("NO_JAX_OK")
