@@ -47,9 +47,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1513,7 +1515,7 @@ def _check_sweep(sal, frames, tag):
           "%s: keypoints %s" % (tag, kp.shape))
 
 
-def phase_pool_sweep(dev, ctx):
+def phase_pool_sweep(dev, ctx, tmp):
     """The port's pool sweep and AL step through `ActiveLearningStrategy`,
     as users run them.  First on the golden tree against the CPU and the
     reference's goldens (`_golden_sweeps`).  Then at full width: the
@@ -1530,8 +1532,6 @@ def phase_pool_sweep(dev, ctx):
     SAL), and a CORESET step (K2 launched once, and held to its plain
     version on that step's features and mask).  Decode workers must not
     have initialized CUDA."""
-    import shutil
-    import tempfile
     import warnings
 
     import torch
@@ -1541,12 +1541,12 @@ def phase_pool_sweep(dev, ctx):
     from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
     try:
         golden = _golden_sweeps(dev, tmp)
         t0 = time.perf_counter()
         tree = generate_panoptic_tree(os.path.join(tmp, "pool"), num_train_frames=SWEEP_FRAMES,
-                                      num_val_frames=2, num_joints=JOINTS, num_cameras=VIEWS)
+                                      num_val_frames=TRAIN_VAL_FRAMES, num_joints=JOINTS,
+                                      num_cameras=VIEWS)
         tree_s = time.perf_counter() - t0
         state = ctx["state_dict"]
         batches = -(-SWEEP_FRAMES // BATCH)
@@ -1672,7 +1672,6 @@ def phase_pool_sweep(dev, ctx):
         check(not any(worker_cuda), "a decode worker initialized CUDA: %s" % worker_cuda)
     finally:
         pipeline.shutdown_shared_executors()
-        shutil.rmtree(tmp, ignore_errors=True)
     emit("pool_sweep", model="PoseResNet-50", frames=SWEEP_FRAMES, views=VIEWS, img=IMG,
          joints=JOINTS, batch=BATCH, workers=SWEEP_WORKERS,
          decoder="native" if native.available() else "PIL",
@@ -1681,7 +1680,337 @@ def phase_pool_sweep(dev, ctx):
          seconds=time.perf_counter() - t_phase)
     launches = {name: p["launches"] for name, p in paths.items()}
     launches["coreset"] = paths["int8"]["al_step"]["coreset_launches"]
-    return launches, golden
+    return launches, golden, tree
+
+
+# Training (phase_train).  Full width: PoseResNet-50 in bf16 (the default
+# compute dtype) on the pool sweep's 31-view tree, B=2 frames (the config's
+# TRAIN.BATCH_SIZE), 20 of its frames labeled (one epoch is then 10 steps,
+# so a run resumed at step 10 sees the batches the uninterrupted run saw),
+# 20 steps with a log point every 10, 8 validation frames.
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_VAL_FRAMES = 2, 20, 8
+TRAIN_STEPS, TRAIN_LOG_EVERY, TRAIN_LR = 20, 10, 1e-3
+# The card against the CPU: PoseResNet-18 at 64x64, 2 frames x 4 views, 4
+# joints, float32 with TF32 off.  LR 1e-5: Adam moves a weight ~lr *
+# sign(g) a step, and the sign of a near-zero gradient is float noise that
+# differs between cuDNN and the CPU, so the weights may differ by 2 * lr a
+# step (PARITY_PARAM_STEPS of them); the losses within rtol 1e-4.  The BN
+# statistics after 3 steps at a step where the LR has decayed to 0
+# (LR * 0.1 ** 50 in float32), within 1e-5 + 1e-5 of their size.
+PARITY_IMG, PARITY_VIEWS, PARITY_JOINTS, PARITY_LR = 64, 4, 4, 1e-5
+PARITY_FROZEN_STEP = 3000 * 50
+PARITY_LOSS_RTOL, PARITY_BN_TOL = 1e-4, 1e-5
+# A resumed run against the uninterrupted one: 10 steps after the resume,
+# each within Adam's 2 * lr sign noise (cuDNN's weight gradients sum in an
+# order that is not fixed).
+RESUME_PARAM_TOL = 2 * TRAIN_LR * (TRAIN_STEPS - TRAIN_LOG_EVERY)
+# TPU.REMAT against no REMAT, one full-width step: the same loss (rtol), and
+# BN statistics folded once (twice would move them by 0.1 of |batch - old|,
+# about 0.1 here).
+REMAT_LOSS_RTOL, REMAT_BN_TOL = 1e-3, 1e-3
+# The stale-weights check: the strategy's engine after training against a
+# new Engine loaded with the trained weights, on one batch.
+STALE_TOL = 1e-4
+
+
+def _parity_batch(seed):
+    import torch
+    from multi_view_active_learning_tpu_torch.ops.heatmap import render_gaussian_heatmaps
+
+    rng = np.random.default_rng(seed)
+    b, v, k, img = 2, PARITY_VIEWS, PARITY_JOINTS, PARITY_IMG
+    images = rng.normal(size=(b, v, img, img, 3)).astype(np.float32)
+    kp = torch.from_numpy(rng.uniform(2, img - 2, size=(b, v, k, 2)).astype(np.float32))
+    gt = render_gaussian_heatmaps(kp / 4, img // 4, img // 4, 2.0).numpy()
+    return images, gt, rng.random((b, v, k)) > 0.2, np.ones(b, bool)
+
+
+def _parity_engine(device, **train):
+    from multi_view_active_learning_tpu_torch.config import get_default_configs
+    from multi_view_active_learning_tpu_torch.engine import Engine
+
+    cfg = get_default_configs()
+    cfg.DATA.NUM_JOINTS = PARITY_JOINTS
+    cfg.DATA.INPUT_HEIGHT = cfg.DATA.INPUT_WIDTH = PARITY_IMG
+    cfg.POSE_ESTIMATOR.NUM_LAYERS = 18
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.INT8_SCORING = False
+    cfg.TRAIN.OPTIM.LR = PARITY_LR
+    for key, value in train.items():
+        setattr(cfg.TRAIN, key, value)
+    return Engine(cfg, device=device)
+
+
+def _train_parity(dev):
+    """(a): three train_steps on the card and on the CPU from the same
+    init_state weights and batch; three at a frozen LR for the BN
+    statistics; a forced skip on the card."""
+    import torch
+
+    batch = _parity_batch(12)
+    init = _parity_engine("cpu").init_state(torch.Generator().manual_seed(0)).state_dict()
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        engine = _parity_engine(device)
+        state, losses = engine.state_from_state_dict(init), []
+        for _ in range(3):
+            state, metrics = engine.train_step(state, *batch)
+            check(not bool(metrics["skipped"]), "%s parity step skipped" % name)
+            losses.append(float(metrics["loss"]))
+        frozen = engine.state_from_state_dict(init, step=PARITY_FROZEN_STEP)
+        for _ in range(3):
+            frozen, metrics = engine.train_step(frozen, *batch)
+            check(float(metrics["lr"]) == 0.0, "the frozen LR is %g" % float(metrics["lr"]))
+        runs[name] = dict(losses=losses, params=state.clone_to("cpu").params,
+                          buffers=frozen.clone_to("cpu").buffers)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["card"]["losses"],
+                                                      runs["cpu"]["losses"]))
+    param_err = max(float((runs["card"]["params"][n] - p).abs().max())
+                    for n, p in runs["cpu"]["params"].items())
+    bn_err = max(float(((runs["card"]["buffers"][n] - b).abs()
+                        / (PARITY_BN_TOL + PARITY_BN_TOL * b.abs())).max())
+                 for n, b in runs["cpu"]["buffers"].items())
+    check(loss_err <= PARITY_LOSS_RTOL, "card losses off the CPU's by %g relative" % loss_err)
+    check(param_err <= 3 * 2 * PARITY_LR, "card weights off the CPU's by %g" % param_err)
+    check(bn_err <= 1.0, "card BN statistics off the CPU's by %g of the tolerance" % bn_err)
+
+    engine = _parity_engine(dev, LOSS_CLIP_VALUE=0.0)
+    state = engine.state_from_state_dict(init)
+    before = {k: v.clone() for k, v in state.flat.items()}
+    count = int(state.count)
+    state, metrics = engine.train_step(state, *batch)
+    check(bool(metrics["skipped"]), "a loss above LOSS_CLIP_VALUE=0 was not skipped")
+    check(all(torch.equal(before[k], state.flat[k]) for k in before)
+          and int(state.count) == count and int(state.step) == 1,
+          "a skipped step changed the state (or did not advance the step)")
+    return dict(card_losses=runs["card"]["losses"], cpu_losses=runs["cpu"]["losses"],
+                loss_rel_err=loss_err, param_max_err=param_err,
+                param_tol=3 * 2 * PARITY_LR, bn_err_of_tol=bn_err, skip_bit_equal=True)
+
+
+def _train_cfg(tree, log_dir, name, **options):
+    return _sweep_cfg(tree, JOINTS, log_dir, EXPR_NAME=name, TRAIN__BATCH_SIZE=TRAIN_BATCH,
+                      TRAIN__FULLY_SUPERVISED_FRAME_COUNT=TRAIN_FRAMES, DATA__EPOCH_SIZE=0,
+                      TRAIN__LOG_EVERY_ITER=TRAIN_LOG_EVERY, TRAIN__VAL_SIZE=TRAIN_VAL_FRAMES,
+                      TRAIN__OPTIM__TOTAL_STEPS=TRAIN_STEPS, TRAIN__OPTIM__LR=TRAIN_LR,
+                      **options)
+
+
+class _TrainSpy:
+    """Wraps a strategy's train_step and _device_batch: keeps every step's
+    loss and skip flag on the card (nothing is fetched), and turns torch's
+    sync debug mode on from a batch's preparation to the end of its step,
+    except for the steps a log point follows."""
+
+    def __init__(self, strategy, log_every):
+        import torch
+
+        self.steps, self.losses, self.skipped = 0, [], []
+        engine_step, device_batch = strategy.engine.train_step, strategy._device_batch
+
+        def train_step(state, *args):
+            state, metrics = engine_step(state, *args)
+            self.steps += 1
+            self.losses.append(metrics["loss"])
+            self.skipped.append(metrics["skipped"])
+            if self.steps % log_every == 0:
+                torch.cuda.set_sync_debug_mode(0)
+            return state, metrics
+
+        def prepare(batch, train):
+            if train:
+                torch.cuda.set_sync_debug_mode("warn")
+            return device_batch(batch, train)
+
+        strategy.engine.train_step = train_step
+        strategy._device_batch = prepare
+        self._strategy = strategy
+
+    def remove(self):
+        del self._strategy.engine.train_step, self._strategy._device_batch
+
+
+def _ckpt_steps(cfg):
+    d = os.path.join(cfg.LOG_DIR, cfg.EXPR_NAME, "FULLY_SUPERVISED", "checkpoints")
+    return d, sorted(os.listdir(d))
+
+
+def phase_train(dev, tree, tmp):
+    """Training through the port's entry points.  (a) `_train_parity`.
+    (b) `run_fully_supervised_training` at full width on the pool sweep's
+    tree: every loss finite and no step skipped, K1 launched once per eval
+    batch (two log points), CKPT-E10 / CKPT-E20 / CKPT-FINAL written, no
+    synchronizing call flagged between log points; a run resumed from
+    CKPT-E10 (TRAIN.RESTORE_FROM) reaches the uninterrupted run's step-20
+    weights within RESUME_PARAM_TOL; after training the strategy's engine
+    scores a batch as a new Engine loaded with the trained weights does
+    (and not as the initial weights do); TPU.REMAT gives one step's loss and
+    BN statistics.  (c) step ms, frames/s and crops/s on batches already on
+    the card, eval and checkpoint-save seconds, peak memory with and
+    without REMAT."""
+    import warnings
+
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch.data import build_dataset, pipeline
+    from multi_view_active_learning_tpu_torch.engine import Engine
+    from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
+    from multi_view_active_learning_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    parity = _train_parity(dev)
+    log_dir = os.path.join(tmp, "train")
+    cfg = _train_cfg(tree, log_dir, "full")
+    strategy = ActiveLearningStrategy(cfg)  # the card: no device given
+    check(strategy.device.type == "cuda", "training on %s" % strategy.device)
+    state0 = strategy.new_state()
+    init_weights = {k: v.clone() for k, v in state0.state_dict().items()}
+    spy = _TrainSpy(strategy, TRAIN_LOG_EVERY)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            state = strategy.run_fully_supervised_training(
+                state0, build_dataset(cfg, "train"), build_dataset(cfg, "val"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            spy.remove()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    losses = torch.stack(spy.losses).float().cpu()
+    skipped = int(torch.stack(spy.skipped).sum())
+    check(spy.steps == TRAIN_STEPS and int(state.step) == TRAIN_STEPS,
+          "trained %d steps (state step %d)" % (spy.steps, int(state.step)))
+    check(bool(torch.isfinite(losses).all()), "non-finite losses %s" % losses.tolist())
+    check(skipped == 0, "%d steps skipped" % skipped)
+    eval_batches = -(-TRAIN_VAL_FRAMES // TRAIN_BATCH) * (TRAIN_STEPS // TRAIN_LOG_EVERY)
+    check(launches["fused_decode"] == eval_batches,
+          "K1 launched %d times for %d eval batches" % (launches["fused_decode"], eval_batches))
+    check(not syncs, "%d synchronizing calls between log points, the first: %s"
+          % (len(syncs), syncs[:1]))
+    ckpt_dir, names = _ckpt_steps(cfg)
+    e10 = [n for n in names if n.startswith("CKPT-E%d-MKPE" % TRAIN_LOG_EVERY)]
+    check(len(e10) == 1 and any(n.startswith("CKPT-E%d-MKPE" % TRAIN_STEPS) for n in names)
+          and "CKPT-FINAL" in names, "checkpoints %s" % names)
+    with open(os.path.join(log_dir, "full", "FULLY_SUPERVISED", "summary", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    mkpe = [r["value"] for r in records if r["tag"] == "3D MKPE"]
+    check(len(mkpe) == TRAIN_STEPS // TRAIN_LOG_EVERY and all(np.isfinite(mkpe)),
+          "3D MKPE records %s" % mkpe)
+
+    # Resumed from CKPT-E10: the same frames in the same order after it.
+    rcfg = _train_cfg(tree, log_dir, "resumed",
+                      TRAIN__RESTORE_FROM=os.path.join(ckpt_dir, e10[0]))
+    resumer = ActiveLearningStrategy(rcfg)
+    resumed = resumer.run_fully_supervised_training(
+        resumer.new_state(salt=1), build_dataset(rcfg, "train"), build_dataset(rcfg, "val"))
+    check(int(resumed.step) == TRAIN_STEPS, "resumed run ended at step %d" % int(resumed.step))
+    resume_err = float((resumed.flat["params"] - state.flat["params"]).abs().max())
+    check(resume_err <= RESUME_PARAM_TOL,
+          "resumed weights off the uninterrupted run's by %g" % resume_err)
+    del resumer, resumed
+
+    # The strategy's engine serves the trained weights (stale-weights check).
+    val_pool = build_dataset(cfg, "val")
+    val_pool.label_all()
+    val_pool.resample_frames(TRAIN_BATCH)
+    batch = next(iter(strategy._get_loader(val_pool, TRAIN_BATCH, 0)))
+    images = strategy._device_images(batch)
+    args = (strategy._put(batch["proj_matrices"]), strategy._put(batch["joint_valid"]),
+            strategy._put(strategy.engine.pairs(VIEWS)), strategy._put(batch["3d_keypoints"]))
+    strategy._load_state(state)
+
+    def score(engine):
+        out = engine.score_step(images, *args, int8_scales=engine.int8_calibrate(images))
+        return torch.cat([out["keypoints_3d"].reshape(-1), out["al_metric"]])
+
+    served = score(strategy.engine)
+    fresh = Engine(cfg)
+    fresh.load_state_dict(state.state_dict())
+    trained = score(fresh)
+    fresh.load_state_dict(init_weights)
+    initial = score(fresh)
+    del fresh
+    stale_err = float((served - trained).abs().max() / trained.abs().max())
+    init_gap = float((initial - trained).abs().max() / trained.abs().max())
+    check(stale_err <= STALE_TOL, "the served scores are off the trained ones by %g" % stale_err)
+    check(init_gap > 100 * STALE_TOL, "training did not change the scores (%g)" % init_gap)
+
+    # (c) Steps on batches already on the card; eval and checkpoint times.
+    train_pool = build_dataset(cfg, "train")
+    train_pool.label_all()
+    train_pool.resample_frames(-1, 0)
+    loader = strategy._get_loader(train_pool, TRAIN_BATCH, 0)
+    batches = []
+    for b in loader:
+        images_t, gt_t = strategy._device_batch(b, train=True)
+        batches.append((images_t, gt_t, strategy._put(b["per_view_joint_valid"]),
+                        strategy._put(b["frame_valid"])))
+        if len(batches) == 4:
+            break
+    engine = strategy.engine
+    bench_state = state.clone()
+    it = [0]
+
+    def step():
+        nonlocal bench_state
+        bench_state, metrics = engine.train_step(bench_state, *batches[it[0] % len(batches)])
+        it[0] += 1
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, _ = _timed_steps(step, 2, 10)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rcfg = cfg.clone()
+    rcfg.TPU.REMAT = True
+    remat = Engine(rcfg)
+    a, b = state.clone(), state.clone()
+    a, ma = engine.train_step(a, *batches[0])
+    b, mb = remat.train_step(b, *batches[0])
+    remat_loss_err = abs(float(ma["loss"]) - float(mb["loss"])) / abs(float(ma["loss"]))
+    remat_bn_err = float((a.flat["buffers"] - b.flat["buffers"]).abs().max())
+    check(remat_loss_err <= REMAT_LOSS_RTOL, "REMAT loss off by %g" % remat_loss_err)
+    check(remat_bn_err <= REMAT_BN_TOL, "REMAT BN statistics off by %g" % remat_bn_err)
+    del a, b
+    bench_state = state.clone()
+    engine = remat
+    torch.cuda.reset_peak_memory_stats()
+    remat_ms, _ = _timed_steps(step, 2, 5)
+    remat_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del remat, bench_state, batches
+
+    val_pool = build_dataset(cfg, "val")
+    val_pool.label_all()
+    val_pool.resample_frames(TRAIN_VAL_FRAMES)
+    val_loader = strategy._get_loader(val_pool, TRAIN_BATCH)
+    try:
+        strategy._evaluate_all(-1, state, val_loader)  # warms the view cache
+        t0 = time.perf_counter()
+        strategy._evaluate_all(-1, state, val_loader)
+        eval_s = time.perf_counter() - t0
+    finally:
+        val_loader.close()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoints([os.path.join(tmp, "bench-CKPT"), os.path.join(tmp, "bench-FINAL")],
+                          state, 1, TRAIN_LR)
+    ckpt_save_s = time.perf_counter() - t0
+    pipeline.shutdown_shared_executors()
+    emit("train", model="PoseResNet-50", dtype=cfg.TPU.COMPUTE_DTYPE, batch=TRAIN_BATCH,
+         views=VIEWS, img=IMG, joints=JOINTS, steps=TRAIN_STEPS, log_every=TRAIN_LOG_EVERY,
+         val_frames=TRAIN_VAL_FRAMES, parity=parity, run_s=run_s, losses=losses.tolist(),
+         mkpe=mkpe, checkpoints=names, launches=launches, synchronizing_calls=len(syncs),
+         resume_param_max_err=resume_err, resume_param_tol=RESUME_PARAM_TOL,
+         stale_rel_err=stale_err, initial_weights_rel_gap=init_gap,
+         step_ms=step_ms, frames_per_s=TRAIN_BATCH / step_ms * 1e3,
+         crops_per_s=TRAIN_BATCH * VIEWS / step_ms * 1e3, peak_gib=peak_gib,
+         remat_step_ms=remat_ms, remat_peak_gib=remat_peak_gib,
+         remat_loss_rel_err=remat_loss_err, remat_bn_max_err=remat_bn_err,
+         eval_s=eval_s, ckpt_save_s=ckpt_save_s, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def run_phases():
@@ -1712,7 +2041,12 @@ def run_phases():
     path_launches = phase_paths(dev, ctx)
     phase_hrnet_path(dev, ctx)
     phase_embedding(dev, ctx)
-    sweep_launches, golden = phase_pool_sweep(dev, ctx)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        sweep_launches, golden, tree = phase_pool_sweep(dev, ctx, tmp)
+        train_launches = phase_train(dev, tree, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # Each kernel's launches on the path that drives it.
     launches["fused_deconv_bn_relu"] = path_launches["bf16_k3"]["fused_deconv_bn_relu"]
     launches["fused_deconv_bn_relu_int8"] = path_launches["int8_k4"]["fused_deconv_bn_relu_int8"]
@@ -1721,6 +2055,8 @@ def run_phases():
     # K1 in a warm sweep of the default configuration, K2 in a CORESET step.
     rows[0]["sweep_launches"] = sweep_launches["int8"]["fused_decode"]
     rows[1]["sweep_launches"] = sweep_launches["coreset"]["min_distance_to_centers"]
+    # K1 in the full-width training run (its evaluations).
+    rows[0]["train_launches"] = train_launches["fused_decode"]
     return smi, rows, time.perf_counter() - t0
 
 

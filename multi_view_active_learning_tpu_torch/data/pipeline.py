@@ -1,8 +1,8 @@
 """Host side of the batch pipeline: per-view decode, crop and resize, and
 fixed-shape batches.
 
-The port's own copy of the JAX package's data/pipeline.py (its host half;
-``device_prepare``, the training batch finisher, is not ported yet).
+The port's own copy of the JAX package's data/pipeline.py: the host half,
+and ``device_prepare``, which finishes a training batch on the device.
 Split of labor against the reference's all-on-CPU prepare_single_view
 (dataset/dataset.py:158-220):
 
@@ -13,7 +13,8 @@ Split of labor against the reference's all-on-CPU prepare_single_view
 
   device (``Engine.score_step``): ImageNet normalization, fused with the
     forward; under DATA.DEVICE_CROP also the crop + resize
-    (ops/image.py::crop_resize_uint8).
+    (ops/image.py::crop_resize_uint8).  For training, ``device_prepare``
+    renders the GT heatmaps and normalizes in float32.
 
 Batches are fixed-shape: the last partial batch is padded and flagged in
 ``frame_valid``.  Worker processes run host code only (numpy, PIL, the
@@ -555,3 +556,46 @@ class FrameLoader:
                 yield item
         finally:
             stop.set()
+
+
+def device_prepare(images_u8, keypoints_2d, sigma, stride: int = 4, train: bool = False,
+                   num_aug: int = 0):
+    """Finish a training (or eval) batch on the device (JAX
+    data/pipeline.py:395-440): GT Gaussian heatmaps at the keypoints over
+    the stride with each frame's sigma, then float32 ImageNet
+    normalization.
+
+    images_u8: uint8 [B, V, H, W, 3]; keypoints_2d: [B, V, K, 2] after the
+    resize; sigma: [B].  Returns (images float32 [B, V, H, W, 3],
+    gt_heatmaps float32 [B, V, K, H / stride, W / stride]).  The on-device
+    RandAugment (DATA.NUM_AUG > 0) is not ported yet."""
+    import torch
+
+    from ..ops import heatmap
+
+    if train and num_aug > 0:
+        raise NotImplementedError(
+            "DATA.NUM_AUG=%d (data/augmentation.py::rand_augment) is not ported to PyTorch "
+            "yet (ROADMAP Queue A7b)" % num_aug)
+    B, V, H, W, _ = images_u8.shape
+    h, w = H // stride, W // stride
+    heat = heatmap.render_gaussian_heatmaps(
+        keypoints_2d.to(torch.float32) / float(stride), h, w,
+        sigma.to(torch.float32)[:, None, None, None, None])  # [B, V, K, h, w]
+    mean, std = _imagenet_stats(images_u8.device)
+    images = (images_u8.to(torch.float32) / 255.0 - mean) / std
+    return images, heat
+
+
+_STATS = {}
+
+
+def _imagenet_stats(device):
+    """ImageNet mean and std as float32 tensors on `device`, uploaded once
+    (a copy from pageable host memory would stall the host every batch)."""
+    if device not in _STATS:
+        from ..device import to_device
+
+        _STATS[device] = tuple(to_device(a, device) for a in (geometry.IMAGENET_MEAN,
+                                                               geometry.IMAGENET_STD))
+    return _STATS[device]

@@ -1,4 +1,4 @@
-"""Scoring / eval engine of the port: the active-learning scoring pass.
+"""Engine of the port: the active-learning scoring pass and training.
 
 Port of the JAX package's engine.py for the inference steps (reference:
 strategy.py:173-187, 584-634 and 1004-1215): uint8 multi-view frames ->
@@ -16,15 +16,29 @@ through K3 (``TPU.PALLAS_HEAD``, PoseResNet), else the standard float
 model.  The EMBEDDING features and ``loss_step`` always take the float
 model.
 
-The engine owns the model and its weights (``load_state_dict``), runs on
-the CUDA device unless given ``device="cpu"``, and raises
-``NotImplementedError`` for every config option this port does not
-implement yet instead of ignoring it.
+Training (JAX engine.py:49-226): ``init_state`` / ``state_from_state_dict``
+make a ``TrainState`` (float32 master weights, BN running statistics,
+Adam's moments and count, the step), and ``train_step`` runs one
+optimizer step on it: the float model in train mode (bf16 compute under
+the default TPU.COMPUTE_DTYPE, BN statistics folded in as flax does,
+TPU.REMAT rematerializing blocks), the masked heatmap MSE and / or the
+integral loss normalized by the real crops, bare Adam with the staircase
+LR taken from the always-advancing step, and the step-skip (non-finite or
+clipped loss, or no real crop) selected on the device, so a step never
+waits on the host.
+
+The engine owns the model and its inference weights (``load_state_dict``,
+or ``use_state`` for a TrainState, which refreshes them, the int8 weights
+and the K3 packs only when the state has changed), runs on the CUDA device
+unless given ``device="cpu"``, and raises ``NotImplementedError`` for
+every config option this port does not implement yet instead of ignoring
+it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Union
+import math
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,7 +47,9 @@ from .device import resolve_device, to_device
 from .kernels import deconv
 from .models import build_model, compute_dtype
 from .models import quantize
+from .models.layers import batch_norms
 from .ops import geometry
+from .ops import heatmap as heatmap_ops
 from .ops import triangulate as tri
 from .ops import uncertainty
 from .utils import prng
@@ -82,6 +98,11 @@ def check_ported(cfg) -> None:
             "TPU.HRNET_PACKED_MAX_CH=%r is not ported to PyTorch yet (ROADMAP Queue A12, "
             "exact reformulation options)" % cfg.TPU.HRNET_PACKED_MAX_CH
         )
+    if cfg.DATA.NUM_AUG > 0:
+        raise NotImplementedError(
+            "DATA.NUM_AUG=%r (data/augmentation.py::rand_augment) is not ported to PyTorch "
+            "yet (ROADMAP Queue A7b)" % cfg.DATA.NUM_AUG
+        )
 
 
 def _int8_supported(cfg) -> bool:
@@ -124,8 +145,110 @@ def int8_float_tail(cfg) -> int:
     return tail
 
 
+TRAIN_LOSSES = ("MSE", "INTEGRAL", "MSE+INTEGRAL")
+
+# optax.scale_by_adam's defaults (JAX engine.py:83), and flax BatchNorm's
+# running-average decay (momentum 0.9, JAX models/pose_resnet.py:41-50).
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+BN_DECAY = 0.9
+
+
+def make_lr_schedule(cfg) -> Callable:
+    """StepLR as optax's staircase exponential decay (JAX engine.py:49-57):
+    ``LR * RATE ** floor(step / STEP_SIZE)``.  Takes an int or an integer
+    tensor; returns a float32 tensor on the step's device."""
+    lr0 = float(cfg.TRAIN.OPTIM.LR)
+    rate = float(cfg.TRAIN.OPTIM.LR_DECAY_RATE)
+    size = int(cfg.TRAIN.OPTIM.LR_DECAY_STEP_SIZE)
+
+    def schedule(step) -> torch.Tensor:
+        step = torch.as_tensor(step)
+        p = torch.floor(step.to(torch.float32) / size)
+        lr = lr0 * torch.pow(rate, p)  # a Python base: no upload to the card
+        return torch.where(step <= 0, torch.full_like(lr, lr0), lr)
+
+    return schedule
+
+
+def _flat(tensors: Mapping[str, torch.Tensor], device) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One float32 buffer on `device` holding `tensors` in order, and a view
+    of it for each name."""
+    parts = [torch.as_tensor(t).detach().reshape(-1).to(torch.float32) for t in tensors.values()]
+    if len({t.device for t in parts}) > 1:
+        parts = [t.to(device) for t in parts]
+    # One copy between devices, after the concatenation on the source.
+    flat = (torch.cat(parts) if parts else torch.zeros(0)).to(device)
+    views, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel()
+        views[name] = flat[offset:offset + n].view(tuple(t.shape))
+        offset += n
+    return flat, views
+
+
+class TrainState:
+    """The training state, on one device: `step` (int64, drives the LR and
+    advances on skipped steps too), `params` (float32 master weights) and
+    `buffers` (BN running means and variances) under the reference's names,
+    and Adam's `mu`, `nu` and `count` (the JAX TrainState's step, params,
+    batch_stats and opt_state).
+
+    Params, moments and statistics are views into one flat float32 buffer
+    each (`flat`), so the optimizer and the step-skip run as a few
+    whole-buffer kernels.  ``Engine.train_step`` updates the tensors in
+    place, as the JAX step donates its state, and bumps `version`, by which
+    the engine knows its inference weights are stale."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], buffers: Mapping[str, torch.Tensor],
+                 device, step=0, mu: Optional[Mapping] = None, nu: Optional[Mapping] = None,
+                 count=0):
+        device = torch.device(device)
+        self.flat: Dict[str, torch.Tensor] = {}
+        self.flat["params"], self.params = _flat(params, device)
+        self.flat["buffers"], self.buffers = _flat(buffers, device)
+        if mu is None:
+            mu = {k: torch.zeros(v.shape) for k, v in params.items()}
+        if nu is None:
+            nu = {k: torch.zeros(v.shape) for k, v in params.items()}
+        self.flat["mu"], self.mu = _flat({k: mu[k] for k in params}, device)
+        self.flat["nu"], self.nu = _flat({k: nu[k] for k in params}, device)
+        # Own copies: a state must not share its counters with its source.
+        self.step = torch.tensor(int(step), dtype=torch.int64, device=device)
+        self.count = torch.tensor(int(count), dtype=torch.int64, device=device)
+        self.version = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.step.device
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's weights and BN statistics under reference names
+        (views: clone before keeping them across a train step)."""
+        return {**self.params, **self.buffers}
+
+    def clone_to(self, device) -> "TrainState":
+        """A copy on `device` (one copy a flat buffer)."""
+        return TrainState(self.params, self.buffers, device, self.step, self.mu, self.nu,
+                          self.count)
+
+    def clone(self) -> "TrainState":
+        return self.clone_to(self.device)
+
+
+def _init_std(model_type: str, name: str) -> Optional[float]:
+    """The flax initializer of a conv weight (JAX models/pose_resnet.py,
+    models/hrnet.py): None for lecun_normal (the residual blocks' convs, and
+    PoseResNet's stem), else the normal(0, 0.001) std of PoseResNet's
+    deconvs and final layer and of HRNet's stem, transition, fuse and final
+    convs."""
+    if model_type == "HRNET":
+        in_blocks = name.startswith("layer1.") or ".branches." in name
+        return None if in_blocks else 0.001
+    return 0.001 if name.startswith(("deconv_layers.", "final_layer.")) else None
+
+
 class Engine:
-    """Owns the model and the scoring / eval steps."""
+    """Owns the model, the scoring / eval steps and the training step."""
 
     def __init__(self, cfg, device: Optional[Union[str, torch.device]] = None):
         check_ported(cfg)
@@ -150,6 +273,17 @@ class Engine:
         self._int8_weights: Optional[Dict[str, torch.Tensor]] = None
         self._k3_heads: Optional[List[deconv.K3Operands]] = None
         self._prepare_weights(self.model.state_dict())
+        # Training: the trainable names in the reference's order (Adam's
+        # parameter order), the BN statistics flax keeps, the schedule, and
+        # the TrainState whose weights the inference model holds.
+        self.model.remat = bool(cfg.TPU.REMAT)
+        self.param_names = [n for n, _ in self.model.named_parameters()]
+        self._bns = batch_norms(self.model)
+        self.buffer_names = [n + suffix for n, _ in self._bns
+                             for suffix in (".running_mean", ".running_var")]
+        self.lr_schedule = make_lr_schedule(cfg)
+        self._used_state: Optional[TrainState] = None
+        self._used_version = -1
 
     def load_state_dict(self, state_dict) -> None:
         """Load reference-named weights (e.g. ``convert.from_flax``'s output),
@@ -159,6 +293,182 @@ class Engine:
         operands are packed here, once per load."""
         self.model.load_state_dict(state_dict, strict=True)
         self._prepare_weights(state_dict)
+        self._used_state = None
+
+    def use_state(self, state: TrainState) -> None:
+        """Make the inference model hold `state`'s weights: its compute-dtype
+        copy of the master weights and BN statistics, the int8 weights and
+        the K3 packs, refreshed only when `state` is another state or has
+        trained since (its `version`)."""
+        if state is self._used_state and state.version == self._used_version:
+            return
+        with torch.no_grad():
+            params = dict(self.model.named_parameters())
+            buffers = dict(self.model.named_buffers())
+            names = list(state.params)
+            torch._foreach_copy_([params[n] for n in names], [state.params[n] for n in names])
+            names = list(state.buffers)
+            torch._foreach_copy_([buffers[n] for n in names], [state.buffers[n] for n in names])
+        self._prepare_weights(state.state_dict())
+        self._used_state, self._used_version = state, state.version
+
+    # -- training -------------------------------------------------------------
+
+    def state_from_state_dict(self, state_dict: Mapping[str, torch.Tensor], step=0) -> TrainState:
+        """A TrainState with these reference-named weights and statistics and
+        a fresh optimizer (``convert.from_flax``'s output, or a checkpoint's
+        ``state_dict``)."""
+        return TrainState({n: state_dict[n] for n in self.param_names},
+                          {n: state_dict[n] for n in self.buffer_names}, self.device, step)
+
+    def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
+        """A fresh TrainState drawn as flax initializes the JAX models:
+        lecun_normal (truncated at two standard deviations, fan-in scaled)
+        or normal(0, 0.001) conv weights (`_init_std`), zero biases, BN scale
+        1 and bias 0, running mean 0 and variance 1.  Drawn on the CPU from
+        `generator` in parameter order, so a seed gives the same weights on
+        any device."""
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        params = {}
+        for name, p in self.model.named_parameters():
+            t = torch.zeros(p.shape, dtype=torch.float32)
+            if name.endswith(".bias"):
+                pass
+            elif p.dim() == 1:  # BN scale
+                t.fill_(1.0)
+            elif _init_std(self.model_type, name) is not None:
+                t.normal_(0.0, _init_std(self.model_type, name), generator=generator)
+            else:
+                # Conv2d weight [O, I, kh, kw] (ConvTranspose2d only takes
+                # the normal init): flax's fan-in is I * kh * kw.
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                            generator=generator)
+            params[name] = t
+        buffers = {n: (torch.ones if n.endswith("running_var") else torch.zeros)(
+            dict(self.model.named_buffers())[n].shape) for n in self.buffer_names}
+        return TrainState(params, buffers, self.device)
+
+    def _bound_model(self, tensors: Mapping[str, torch.Tensor]):
+        """Context: the model's parameters replaced by `tensors` (same names)
+        in train mode, restored on exit.  The backward pass runs inside, so
+        a rematerialized forward (TPU.REMAT) also sees the bound tensors."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def bound():
+            saved = []
+            for name, t in tensors.items():
+                prefix, _, leaf = name.rpartition(".")
+                module = self.model.get_submodule(prefix)
+                saved.append((module, leaf, module._parameters[leaf]))
+                module._parameters[leaf] = t
+            for _, bn in self._bns:
+                bn.batch_stats = None
+            self.model.train()
+            try:
+                yield
+            finally:
+                self.model.eval()
+                for module, leaf, p in saved:
+                    module._parameters[leaf] = p
+
+        return bound()
+
+    def _loss_and_grads(self, state: TrainState, images, gt_heatmaps, per_view_joint_valid,
+                        frame_valid):
+        """The train-mode forward and backward on `state`'s weights:
+        (loss, gradients in parameter order, the first crop's heatmap
+        [K, h, w], the real crop count).  Each BatchNorm keeps its batch
+        statistics in its record."""
+        loss_type = self.cfg.TRAIN.LOSS
+        if loss_type not in TRAIN_LOSSES:
+            raise NotImplementedError("Unknown TRAIN.LOSS: %s" % loss_type)
+        images = self._tensor(images, torch.float32)
+        B, V = images.shape[0], images.shape[1]
+        x = images.reshape((B * V,) + tuple(images.shape[2:])).permute(0, 3, 1, 2).contiguous()
+        gt = self._tensor(gt_heatmaps, torch.float32)
+        gt = gt.reshape((B * V,) + tuple(gt.shape[2:]))
+        frame_valid = self._tensor(frame_valid, torch.bool)
+        mask = (self._tensor(per_view_joint_valid, torch.bool)
+                & frame_valid[:, None, None]).reshape(B * V, -1, 1, 1)
+        # The loss counts REAL crops only (JAX engine.py:161-166): padding
+        # rows in the denominator would dilute a tail batch's gradient.
+        n_valid_crops = torch.sum(frame_valid.to(torch.float32)) * V
+
+        leaves = {n: state.params[n].detach().requires_grad_() for n in self.param_names}
+        with self._bound_model(leaves):
+            out = self.model(x)  # [B*V, K, h, w] float32
+            loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            if loss_type in ("MSE", "MSE+INTEGRAL"):
+                loss = heatmap_ops.heatmap_mse_loss(out, gt, mask,
+                                                    num_samples=torch.clamp(n_valid_crops, min=1.0))
+            if loss_type in ("INTEGRAL", "MSE+INTEGRAL"):
+                weight = self.cfg.TRAIN.INTEGRAL_WEIGHT if loss_type == "MSE+INTEGRAL" else 1.0
+                loss = loss + weight * heatmap_ops.integral_regression_loss(
+                    out, gt, mask[:, :, 0, 0], beta=self.cfg.TRAIN.INTEGRAL_BETA)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), grads, out[0].detach(), n_valid_crops
+
+    def loss_and_grads(self, state: TrainState, images, gt_heatmaps, per_view_joint_valid,
+                       frame_valid) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of a batch and its gradient with respect to
+        each of `state.params`, which stay as they are (train_step's
+        arguments; only `state.params` is read)."""
+        loss, grads, _, _ = self._loss_and_grads(state, images, gt_heatmaps,
+                                                 per_view_joint_valid, frame_valid)
+        for _, bn in self._bns:
+            bn.batch_stats = None
+        return loss, dict(zip(self.param_names, grads))
+
+    def train_step(self, state: TrainState, images, gt_heatmaps, per_view_joint_valid,
+                   frame_valid) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer step on `state`, in place (JAX engine.py:126-226).
+
+        images: float32 [B, V, H, W, 3], normalized (``device_prepare``);
+        gt_heatmaps: [B, V, K, h, w]; per_view_joint_valid: [B, V, K] bool;
+        frame_valid: [B] bool (padding rows are False and add no loss).
+        Returns (state, metrics) with metrics on the device: loss, skipped
+        (the update was not applied), lr (the one this step used) and
+        first_heatmap (the first crop's prediction [K, h, w], float32).
+        Nothing here waits on the card."""
+        loss, grads, first_heatmap, n_valid_crops = self._loss_and_grads(
+            state, images, gt_heatmaps, per_view_joint_valid, frame_valid)
+        missing = [name for name, bn in self._bns if bn.batch_stats is None]
+        if missing:
+            raise RuntimeError("batch norms without batch statistics: %s" % missing[:4])
+
+        with torch.no_grad():
+            lr = self.lr_schedule(state.step)
+            ok = (torch.isfinite(loss) & (loss <= self.cfg.TRAIN.LOSS_CLIP_VALUE)
+                  & (n_valid_crops > 0))
+            # Adam as optax.scale_by_adam, with -lr applied outside it.
+            g = torch.cat([t.reshape(-1) for t in grads])
+            p, mu, nu = state.flat["params"], state.flat["mu"], state.flat["nu"]
+            count = state.count + 1
+            new_mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+            new_nu = (1 - ADAM_B2) * torch.square(g) + ADAM_B2 * nu
+            c = count.to(torch.float32)
+            update = (new_mu / (1 - torch.pow(ADAM_B1, c))) / (
+                torch.sqrt(new_nu / (1 - torch.pow(ADAM_B2, c))) + ADAM_EPS)
+            new_p = p + (-lr) * update
+            # Flax's running statistics: ra = 0.9 ra + 0.1 batch (biased var).
+            batch = torch.cat([t for _, bn in self._bns for t in bn.batch_stats])
+            stats = state.flat["buffers"]
+            new_stats = BN_DECAY * stats + (1 - BN_DECAY) * batch
+            # The step-skip, selected on the device (JAX engine.py:205-226).
+            p.copy_(torch.where(ok, new_p, p))
+            mu.copy_(torch.where(ok, new_mu, mu))
+            nu.copy_(torch.where(ok, new_nu, nu))
+            stats.copy_(torch.where(ok, new_stats, stats))
+            state.count.copy_(torch.where(ok, count, state.count))
+            state.step.add_(1)
+        for _, bn in self._bns:
+            bn.batch_stats = None
+        state.version += 1
+        metrics = {"loss": loss, "skipped": ~ok, "lr": lr, "first_heatmap": first_heatmap}
+        return state, metrics
 
     def _prepare_weights(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         if self.use_pallas_head:

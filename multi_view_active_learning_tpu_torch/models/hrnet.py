@@ -17,7 +17,9 @@ Dtype policy of the JAX package (models/hrnet.py): the convolutions, the
 exchange sums and the ReLUs run in the compute dtype, batch norm keeps
 float32 parameters and statistics (as the port's PoseResNet), and the final
 conv runs in float32 on the float32 high-resolution branch, so heatmaps are
-float32.
+float32.  Training follows the JAX package as PoseResNet does
+(models/layers.py); ``remat`` (TPU.REMAT) rematerializes each layer1 block
+and each stage module in the backward pass.
 """
 
 from __future__ import annotations
@@ -27,14 +29,15 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from .layers import BatchNorm2d, Conv2d, run_block
 from .pose_resnet import BN_MOMENTUM, BasicBlock, Bottleneck
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
 
 def _conv_bn(cin: int, cout: int, kernel: int, stride: int, relu: bool) -> nn.Sequential:
-    layers = [nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False),
-              nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)]
+    layers = [Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False),
+              BatchNorm2d(cout, momentum=BN_MOMENTUM)]
     if relu:
         layers.append(nn.ReLU(inplace=True))
     return nn.Sequential(*layers)
@@ -45,8 +48,8 @@ def _branch(block, inplanes: int, planes: int, blocks: int) -> nn.Sequential:
     downsample = None
     if inplanes != planes * block.expansion:
         downsample = nn.Sequential(
-            nn.Conv2d(inplanes, planes * block.expansion, 1, 1, bias=False),
-            nn.BatchNorm2d(planes * block.expansion, momentum=BN_MOMENTUM),
+            Conv2d(inplanes, planes * block.expansion, 1, 1, bias=False),
+            BatchNorm2d(planes * block.expansion, momentum=BN_MOMENTUM),
         )
     layers = [block(inplanes, planes, 1, downsample)]
     layers += [block(planes * block.expansion, planes) for _ in range(1, blocks)]
@@ -78,8 +81,8 @@ class HighResolutionModule(nn.Module):
                 for j in range(num_branches):
                     if j > i:
                         row.append(nn.Sequential(
-                            nn.Conv2d(out[j], out[i], 1, 1, 0, bias=False),
-                            nn.BatchNorm2d(out[i], momentum=BN_MOMENTUM),
+                            Conv2d(out[j], out[i], 1, 1, 0, bias=False),
+                            BatchNorm2d(out[i], momentum=BN_MOMENTUM),
                             nn.Upsample(scale_factor=2 ** (j - i), mode="nearest")))
                     elif j == i:
                         row.append(None)
@@ -122,12 +125,13 @@ class PoseHighResolutionNet(nn.Module):
                  final_conv_kernel: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = dtype
+        self.remat = False
         self.stage_configs = (stage2, stage3, stage4)
         self.final_conv_kernel = final_conv_kernel
-        self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, momentum=BN_MOMENTUM)
-        self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(64, momentum=BN_MOMENTUM)
+        self.conv1 = Conv2d(3, 64, 3, 2, 1, bias=False)
+        self.bn1 = BatchNorm2d(64, momentum=BN_MOMENTUM)
+        self.conv2 = Conv2d(64, 64, 3, 2, 1, bias=False)
+        self.bn2 = BatchNorm2d(64, momentum=BN_MOMENTUM)
         self.relu = nn.ReLU(inplace=True)
         self.layer1 = _branch(Bottleneck, 64, 64, 4)
         prev = [256]
@@ -149,11 +153,11 @@ class PoseHighResolutionNet(nn.Module):
                                      multi_scale_output=not (s == 4 and m == num_modules - 1))
                 for m in range(num_modules))))
             prev = cur
-        self.final_layer = nn.Conv2d(prev[0], num_joints, final_conv_kernel, 1,
+        self.final_layer = Conv2d(prev[0], num_joints, final_conv_kernel, 1,
                                      1 if final_conv_kernel == 3 else 0)
         # Compute-dtype weights for every conv but the float32 final layer.
         for module in self.modules():
-            if isinstance(module, nn.Conv2d) and module is not self.final_layer:
+            if isinstance(module, Conv2d) and module is not self.final_layer:
                 module.to(dtype)
 
     @classmethod
@@ -169,7 +173,9 @@ class PoseHighResolutionNet(nn.Module):
         x = x.to(self.compute_dtype)
         x = self.relu(self.bn1(self.conv1(x)))
         x = self.relu(self.bn2(self.conv2(x)))
-        ys = [self.layer1(x)]
+        for block in self.layer1:
+            x = run_block(block, x, self.remat)
+        ys = [x]
         for s in (2, 3, 4):
             xs = []
             for i, t in enumerate(getattr(self, "transition%d" % (s - 1))):
@@ -177,7 +183,9 @@ class PoseHighResolutionNet(nn.Module):
                     xs.append(ys[i] if t is None else t(ys[i]))
                 else:
                     xs.append(t(ys[-1]))
-            ys = getattr(self, "stage%d" % s)(xs)
+            for module in getattr(self, "stage%d" % s):
+                xs = run_block(module, xs, self.remat)
+            ys = xs
         high = ys[0].to(torch.float32)
         out = self.final_layer(high)
         if return_features:

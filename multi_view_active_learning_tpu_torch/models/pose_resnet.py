@@ -7,11 +7,14 @@ ResNet-{18,34,50,101,152} trunk -> 3x (ConvTranspose2d 256, k4, s2, p1) +
 BN + ReLU -> 1x1 conv to num_joints heatmaps; stride 4 overall.
 
 Dtype policy of the JAX package (models/pose_resnet.py:305, 354-360): the
-convolutions run in the compute dtype (float32 or bfloat16; their weights
-are stored in it), batch norm keeps float32 parameters and statistics and
+convolutions run in the compute dtype (float32 or bfloat16; the inference
+model stores their weights in it, training binds float32 master weights,
+models/layers.py), batch norm keeps float32 parameters and statistics and
 normalizes in float32 (its output is cast back to the compute dtype), and
 the final 1x1 conv runs in float32 on a float32 input -- so heatmaps are
-always float32.
+always float32.  In train mode batch norm follows flax (layers.py), and
+``remat`` (TPU.REMAT) rematerializes every residual block and the head in
+the backward pass.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .layers import BatchNorm2d, Conv2d, ConvTranspose2d, run_block
 
 BN_MOMENTUM = 0.1
 
@@ -32,10 +37,10 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: Optional[nn.Module] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes, momentum=BN_MOMENTUM)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -55,12 +60,12 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: Optional[nn.Module] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
-        self.conv3 = nn.Conv2d(planes, planes * self.expansion, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * self.expansion, momentum=BN_MOMENTUM)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv3 = Conv2d(planes, planes * self.expansion, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * self.expansion, momentum=BN_MOMENTUM)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -91,8 +96,9 @@ class PoseResNet(nn.Module):
             raise ValueError("PoseResNet depth must be one of %s" % sorted(RESNET_SPEC))
         block, layer_sizes = RESNET_SPEC[num_layers]
         self.compute_dtype = dtype
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, momentum=BN_MOMENTUM)
+        self.remat = False
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64, momentum=BN_MOMENTUM)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
@@ -103,8 +109,8 @@ class PoseResNet(nn.Module):
                 downsample = None
                 if i == 0 and (stride != 1 or inplanes != planes * block.expansion):
                     downsample = nn.Sequential(
-                        nn.Conv2d(inplanes, planes * block.expansion, 1, stride, bias=False),
-                        nn.BatchNorm2d(planes * block.expansion, momentum=BN_MOMENTUM),
+                        Conv2d(inplanes, planes * block.expansion, 1, stride, bias=False),
+                        BatchNorm2d(planes * block.expansion, momentum=BN_MOMENTUM),
                     )
                 layers.append(block(inplanes, planes, stride if i == 0 else 1, downsample))
                 inplanes = planes * block.expansion
@@ -112,22 +118,25 @@ class PoseResNet(nn.Module):
         head = []
         for _ in range(3):
             head += [
-                nn.ConvTranspose2d(inplanes, 256, 4, 2, 1, output_padding=0, bias=False),
-                nn.BatchNorm2d(256, momentum=BN_MOMENTUM),
+                ConvTranspose2d(inplanes, 256, 4, 2, 1, output_padding=0, bias=False),
+                BatchNorm2d(256, momentum=BN_MOMENTUM),
                 nn.ReLU(inplace=True),
             ]
             inplanes = 256
         self.deconv_layers = nn.Sequential(*head)
-        self.final_layer = nn.Conv2d(256, num_joints, 1)
+        self.final_layer = Conv2d(256, num_joints, 1)
         # Compute-dtype weights for every conv but the float32 final layer.
         for module in self.modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)) and module is not self.final_layer:
+            if isinstance(module, (Conv2d, ConvTranspose2d)) and module is not self.final_layer:
                 module.to(dtype)
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = run_block(block, x, self.remat)
+        return x
 
     def forward(self, x: torch.Tensor, skip_head: bool = False,
                 return_features: bool = False):
@@ -138,7 +147,7 @@ class PoseResNet(nn.Module):
         if skip_head:
             return x
         pooled = torch.mean(x.to(torch.float32), dim=(2, 3)) if return_features else None
-        x = self.deconv_layers(x)
+        x = run_block(self.deconv_layers, x, self.remat)
         x = self.final_layer(x.to(torch.float32))
         if return_features:
             return x, pooled

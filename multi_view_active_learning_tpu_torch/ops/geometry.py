@@ -18,6 +18,11 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
+def denormalize_image(image: np.ndarray) -> np.ndarray:
+    """An ImageNet-normalized HWC float image back to uint8 pixels."""
+    return np.uint8(np.clip(255.0 * (image * IMAGENET_STD + IMAGENET_MEAN), 0, 255))
+
+
 # ---------------------------------------------------------------------------
 # Host-side camera model (numpy).
 # ---------------------------------------------------------------------------

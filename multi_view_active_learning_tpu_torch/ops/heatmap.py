@@ -7,7 +7,9 @@ decode that runs through it:
   * Gaussian heatmap rendering (reference: dataset/dataset.py:198-207);
   * hard-argmax 2D decode (reference: utils/evaluation.py:13-30);
   * spatial soft-argmax (kornia.spatial_soft_argmax2d, reference:
-    utils/triangulation.py:192-199).
+    utils/triangulation.py:192-199);
+  * the training losses: the masked heatmap MSE of the reference and the
+    integral (soft-argmax) regression loss of the JAX package.
 
 All functions treat the trailing two axes as (h, w) and broadcast over any
 leading batch axes.
@@ -15,7 +17,7 @@ leading batch axes.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -118,3 +120,61 @@ def decode_keypoints_bbox(
     width = (bbox[..., 2] - bbox[..., 0])[..., None, None]
     height = (bbox[..., 3] - bbox[..., 1])[..., None, None]
     return coords * torch.cat([width / float(w), height / float(h)], dim=-1)
+
+
+def integral_regression_loss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    joint_valid: Optional[torch.Tensor] = None,
+    beta: float = 10.0,
+    peak_threshold: float = 0.1,
+) -> torch.Tensor:
+    """Soft-argmax coordinate regression (the JAX package's TRAIN.LOSS
+    INTEGRAL, ops/heatmap.py:133-183 there; integral pose regression, Sun
+    et al., ECCV'18).
+
+    pred / target: [N, K, h, w]; joint_valid: [N, K] bool or None.  The
+    prediction is the softmax(beta * heatmap) expectation; the target is
+    the GT heatmap's linear expectation (its keypoint while the Gaussian
+    lies in the crop).  Joints whose GT peak is at most `peak_threshold`
+    are dropped.  The error is L1 in units of the heatmap's extent,
+    |dx| / w + |dy| / h, averaged over the joints kept."""
+    h, w = pred.shape[-2], pred.shape[-1]
+    pred_xy = soft_argmax(pred, stride=1.0, temperature=beta)  # [N, K, 2]
+    tgt_sum = torch.sum(target, dim=(-2, -1))  # [N, K]
+    probs = target / torch.clamp(tgt_sum, min=1e-8)[..., None, None]
+    xs = torch.arange(w, dtype=torch.float32, device=pred.device)
+    ys = torch.arange(h, dtype=torch.float32, device=pred.device)
+    tx = torch.sum(torch.sum(probs, dim=-2) * xs, dim=-1)
+    ty = torch.sum(torch.sum(probs, dim=-1) * ys, dim=-1)
+    tgt_xy = torch.stack([tx, ty], dim=-1)  # [N, K, 2]
+    valid = torch.amax(target, dim=(-2, -1)) > peak_threshold  # [N, K]
+    if joint_valid is not None:
+        valid = valid & joint_valid
+    extent = torch.tensor([float(w), float(h)], dtype=torch.float32, device=pred.device)
+    err = torch.sum(torch.abs(pred_xy - tgt_xy) / extent, dim=-1)  # [N, K]
+    err = torch.where(valid, err, torch.zeros_like(err))
+    return torch.sum(err) / torch.clamp(torch.sum(valid), min=1)
+
+
+def heatmap_mse_loss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    joint_valid: Optional[torch.Tensor] = None,
+    num_samples: Optional[Union[torch.Tensor, float]] = None,
+) -> torch.Tensor:
+    """Masked heatmap MSE with the reference's normalization: the summed
+    squared error over (samples * h * w), not over joints (reference:
+    pose_estimators/loss.py:14-20).
+
+    pred / target: [N, K, h, w]; joint_valid: a bool mask that broadcasts
+    against them ([N, K, 1, 1] per sample and joint); num_samples: the
+    count of real samples in the denominator (default N), so zero-loss
+    padding rows do not dilute a tail batch."""
+    err = torch.square(pred - target)
+    if joint_valid is not None:
+        err = torch.where(joint_valid, err, torch.zeros_like(err))
+    n, h, w = pred.shape[0], pred.shape[-2], pred.shape[-1]
+    if num_samples is None:
+        num_samples = n
+    return torch.sum(err) / (num_samples * h * w)

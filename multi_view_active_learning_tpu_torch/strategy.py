@@ -1,5 +1,5 @@
-"""Active-learning strategy of the port: the pool sweep, selection and SAL
-pseudo-labels.
+"""Active-learning strategy of the port: training and evaluation, the pool
+sweep, selection and SAL pseudo-labels.
 
 The port's counterpart of the JAX package's strategy.py for the AL step
 (reference: strategy.py:28-135, 868-1147): ``sample_next_batch`` draws the
@@ -10,16 +10,27 @@ AL metric or by the k-center coreset (K2's sweep), pseudo-labels frames for
 SAL, and writes the guid logs (SAMPLED-GUID-ITER-n, SAL-GUID-ITER-n,
 SAL-DICT-ITER-n) in the reference's JSON format.
 
-``state`` is a reference-named torch state dict (``models.convert.
-from_flax``'s output, or a checkpoint's); the engine loads it when it is not
-the dict loaded last.  One process scores the whole pool; training,
-evaluation and the multi-process sweep are not ported yet.
+Training (reference: strategy.py:240-546): ``run_fully_supervised_training``
+and ``al_iteration`` run ``_train``, the JAX package's loop
+(strategy.py:806-992 there): ``Engine.train_step`` on batches finished on the
+device (``device_prepare``), skips summed on the device and read only at log
+points, and at every TRAIN.LOG_EVERY_ITER (and at the end, when TOTAL_STEPS
+is not a multiple of it) ``_evaluate_all`` (``eval_step``, K1 on every
+batch), checkpoints ``CKPT-E<step>-MKPE<mkpe>`` and ``CKPT-FINAL``
+(utils/checkpoint.py) and the metrics writer's records.
+
+``state`` is an ``engine.TrainState`` (``new_state``, or what ``_train``
+returns) or a reference-named torch state dict (``models.convert.
+from_flax``'s output, or a checkpoint's); the engine's inference weights
+follow it (``_load_state``).  One process does all of it; the multi-process
+loop is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import time
 from collections import OrderedDict, deque
 from heapq import nlargest
@@ -30,12 +41,15 @@ import torch
 
 from . import engine as engine_mod
 from .data import FrameLoader
+from .data.pipeline import device_prepare
 from .device import to_device
-from .engine import Engine
+from .engine import Engine, TrainState
 from .ops import coreset as coreset_ops
 from .ops import image as image_ops
-from .utils import RateLogger, get_logger, prng, storage
+from .utils import RateLogger, evaluation, get_logger, prng, profiling, storage
+from .utils import checkpoint as ckpt
 from .utils.kmeans import KMeans
+from .utils.metrics_writer import MetricsWriter
 
 
 class ActiveLearningStrategy:
@@ -80,7 +94,13 @@ class ActiveLearningStrategy:
         return np.random.default_rng((int(self.al_cfg.RANDOM_SEED) + salt) & 0x7FFFFFFF)
 
     def _load_state(self, state) -> None:
-        if state is not None and state is not self._state:
+        """The engine's inference weights follow `state`: a TrainState
+        (refreshed after it trains), or a state dict (loaded when it is not
+        the dict loaded last)."""
+        if isinstance(state, TrainState):
+            self.engine.use_state(state)
+            self._state = None
+        elif state is not None and state is not self._state:
             self.engine.load_state_dict(state)
             self._state = state
 
@@ -149,6 +169,19 @@ class ActiveLearningStrategy:
                                                  self.al_cfg.DATA.INPUT_HEIGHT,
                                                  self.al_cfg.DATA.INPUT_WIDTH)
         return images
+
+    def _device_batch(self, batch: Dict, train: bool):
+        """A host batch -> (normalized float32 images, GT heatmaps) on the
+        device."""
+        d = self.al_cfg.DATA
+        return device_prepare(self._device_images(batch), self._put(batch["2d_keypoints"]),
+                              self._put(batch["sigma"]), stride=self.al_cfg.POSE_ESTIMATOR.STRIDE,
+                              train=train, num_aug=d.NUM_AUG if train else 0)
+
+    def new_state(self, salt: int = 0) -> TrainState:
+        """A freshly initialized TrainState from RANDOM_SEED + salt."""
+        seed = (int(self.al_cfg.RANDOM_SEED) + salt) & 0x7FFFFFFF
+        return self.engine.init_state(torch.Generator().manual_seed(seed))
 
     # ----------------------------------------------------------- AL sampling
 
@@ -409,3 +442,202 @@ class ActiveLearningStrategy:
         finally:
             loader.close()
         return embeddings
+
+    # -------------------------------------------------------------- training
+
+    def al_iteration(self, state, train_pool, val_pool, iteration):
+        """Reference: strategy.py:240-265."""
+        train_cfg = self.al_cfg.clone()
+        train_cfg.EXPR_NAME = train_cfg.EXPR_NAME + "/ITER-%d" % iteration
+        return self._train(iteration, train_cfg, train_pool, val_pool, state)
+
+    def run_fully_supervised_training(self, state, train_pool, val_pool):
+        """Reference: strategy.py:279-313."""
+        if self.al_cfg.TRAIN.FULLY_SUPERVISED_FRAME_COUNT != -1:
+            self._random_sample_frames(train_pool, self.al_cfg.TRAIN.FULLY_SUPERVISED_FRAME_COUNT)
+        else:
+            train_pool.label_all()
+        train_cfg = self.al_cfg.clone()
+        train_cfg.EXPR_NAME = train_cfg.EXPR_NAME + "/FULLY_SUPERVISED"
+        return self._train(-1, train_cfg, train_pool, val_pool, state)
+
+    def _prepare_experiment(self, cfg):
+        """Reference: strategy.py:651-679.  (checkpoints dir, writer)."""
+        experiment_dir = storage.join(cfg.LOG_DIR, cfg.EXPR_NAME)
+        checkpoints_dir = storage.join(experiment_dir, "checkpoints")
+        storage.makedirs(checkpoints_dir)
+        with storage.open_file(storage.join(experiment_dir, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+        return checkpoints_dir, MetricsWriter(storage.join(experiment_dir, "summary"))
+
+    def _load_weights(self, cfg, state: TrainState) -> TrainState:
+        """TRAIN.RESTORE_FROM, a true resume (weights, BN statistics, Adam
+        state and step, which the reference saves and never restores), or
+        TRAIN.INIT_WEIGHT, the reference's filtered pretrained init
+        (reference: strategy.py:713-745)."""
+        if cfg.TRAIN.RESTORE_FROM:
+            self._logger.info("Resuming from %s" % cfg.TRAIN.RESTORE_FROM)
+            return ckpt.restore_checkpoint(cfg.TRAIN.RESTORE_FROM, state)
+        if cfg.TRAIN.INIT_WEIGHT:
+            self._logger.info("Initializing weights from %s" % cfg.TRAIN.INIT_WEIGHT)
+            return ckpt.load_pretrained(cfg, cfg.TRAIN.INIT_WEIGHT, state)
+        self._logger.info("Training from scratch.")
+        return state
+
+    def _save_point(self, checkpoints_dir, state, epoch, step, mkpe, lr=None) -> None:
+        """The step-named checkpoint and the rolling CKPT-FINAL.  One process
+        writes and reads them, so the JAX package's barrier after a save
+        has nobody to wait for (multi-process runs: ROADMAP A9)."""
+        ckpt.save_checkpoints(
+            [os.path.join(checkpoints_dir, "CKPT-E%d-MKPE%.2f" % (step, mkpe)),
+             os.path.join(checkpoints_dir, "CKPT-FINAL")], state, epoch, lr)
+
+    def _train(self, iteration_idx, train_cfg, train_pool, val_pool, state):
+        """The training loop (reference: strategy.py:422-546; JAX
+        strategy.py:806-992).  Returns the trained state."""
+        checkpoints_dir, writer = self._prepare_experiment(train_cfg)
+        val_pool.label_all()
+        val_pool.resample_frames(min(train_cfg.TRAIN.VAL_SIZE, len(val_pool.labeled_data)),
+                                 rng=self._rng(1))
+        val_loader = self._get_loader(val_pool, train_cfg.TRAIN.BATCH_SIZE)
+        state = self._load_weights(train_cfg, state)
+        train_pool.resample_frames(-1, train_cfg.DATA.EPOCH_SIZE,
+                                   rng=self._rng(2 + max(iteration_idx, 0)))
+        train_loader = self._get_loader(train_pool, train_cfg.TRAIN.BATCH_SIZE)
+        log_every = train_cfg.TRAIN.LOG_EVERY_ITER
+        try:
+            total_steps = max(train_cfg.TRAIN.OPTIM.TOTAL_STEPS, log_every)
+            epoch, global_step = 0, int(state.step)
+            if global_step:
+                self._logger.info("Resuming training at step %d." % global_step)
+            # Skips are summed on the device and read at log points only: a
+            # per-step fetch would make every step wait for the card.
+            skip_sum = torch.zeros((), dtype=torch.int64, device=self.device)
+            t_start, steps_timed = time.time(), 0
+            step_timer = profiling.StepTimer()
+            while global_step < total_steps:
+                epoch += 1
+                batches_this_epoch = 0
+                for batch in train_loader:
+                    batches_this_epoch += 1
+                    images, gt_heat = self._device_batch(batch, train=True)
+                    state, metrics = self.engine.train_step(
+                        state, images, gt_heat, self._put(batch["per_view_joint_valid"]),
+                        self._put(batch["frame_valid"]))
+                    global_step += 1
+                    steps_timed += 1
+                    step_timer.tick()
+                    skip_sum = skip_sum + metrics["skipped"]
+                    if global_step % log_every == 0:
+                        # The training window's rate, before the log point's work.
+                        steps_per_sec = steps_timed / max(time.time() - t_start, 1e-9)
+                        last_loss = float(metrics["loss"])
+                        lr = float(metrics["lr"])
+                        skips = int(skip_sum)
+                        if skips:
+                            self._logger.warning(
+                                "%d steps skipped so far (non-finite or clipped loss)." % skips)
+                        eval_results = self._evaluate_all(iteration_idx, state, val_loader)
+                        self._save_point(checkpoints_dir, state, epoch, global_step,
+                                         eval_results["mkpe"], lr)
+                        writer.add_scalar("lr", lr, global_step)
+                        writer.add_scalar("3D MKPE", eval_results["mkpe"], global_step)
+                        writer.add_scalar("loss/train", last_loss, global_step)
+                        writer.add_pck_curves("3DPCK", global_step, eval_results["thresholds"],
+                                              eval_results["pcks"])
+                        if "pckh_thresholds" in eval_results:
+                            writer.add_pck_curves("3DPCKH", global_step,
+                                                  eval_results["pckh_thresholds"],
+                                                  eval_results["pckh_pcks"])
+                        writer.add_scalar("steps_per_sec", steps_per_sec, global_step)
+                        self._log_train_figures(writer, metrics["first_heatmap"], images, gt_heat,
+                                                global_step)
+                        for k, v in step_timer.summary().items():
+                            writer.add_scalar("perf/%s" % k, v, global_step)
+                        for dev, stats in profiling.device_memory_stats().items():
+                            writer.add_scalar("hbm/%s/bytes_in_use_gib" % dev,
+                                              stats["bytes_in_use_gib"], global_step)
+                        self._logger.info(
+                            "[EPOCH %d][STEP %d] loss %.4f mkpe %.2f (%.2f steps/s)"
+                            % (epoch, global_step, last_loss, eval_results["mkpe"], steps_per_sec))
+                        t_start, steps_timed = time.time(), 0
+                    if global_step >= total_steps:
+                        break
+                if batches_this_epoch == 0:
+                    raise RuntimeError(
+                        "Train loader yielded no batches (labeled pool size %d, batch size %d) — "
+                        "training cannot make progress."
+                        % (len(train_pool.labeled_data), train_cfg.TRAIN.BATCH_SIZE))
+            if global_step % log_every:
+                # TOTAL_STEPS is not a multiple of LOG_EVERY_ITER: the
+                # reference saves at log points only and so drops the last
+                # steps from CKPT-FINAL, which the next AL iteration reads;
+                # the end of training is saved here instead.
+                eval_results = self._evaluate_all(iteration_idx, state, val_loader)
+                self._save_point(checkpoints_dir, state, epoch, global_step, eval_results["mkpe"])
+                writer.add_scalar("3D MKPE", eval_results["mkpe"], global_step)
+                self._logger.info("[FINAL][STEP %d] mkpe %.2f — end-of-training checkpoint saved."
+                                  % (global_step, eval_results["mkpe"]))
+        finally:
+            train_loader.close()  # the decode pool's references, also on a failure
+            val_loader.close()
+        writer.close()
+        return state
+
+    def _log_train_figures(self, writer, first_heatmap, images, gt_heat, step):
+        """The predicted against the GT heatmaps and a 2D keypoint overlay of
+        the first crop of the batch (reference: utils/visualization.py:14-64),
+        from the prediction the train step already made."""
+        from .ops import geometry as geo_ops
+        from .ops import heatmap as heatmap_ops
+        from .utils import visualization
+
+        pred_hm = first_heatmap.detach().to("cpu", torch.float32)  # [K, h, w]
+        gt_hm = gt_heat[0, 0].detach().to("cpu", torch.float32)
+        writer.add_image("train/pred_vs_gt_heatmaps",
+                         visualization.pred_vs_gt_heatmaps(pred_hm.numpy(), gt_hm.numpy()), step)
+        img = images[0, 0].detach().cpu().numpy()
+        if img.dtype != np.uint8:
+            img = geo_ops.denormalize_image(img.astype(np.float32))
+        stride = float(self.al_cfg.POSE_ESTIMATOR.STRIDE)
+        pred_kp = heatmap_ops.decode_argmax(pred_hm, stride=stride)[0].numpy()
+        gt_kp = heatmap_ops.decode_argmax(gt_hm, stride=stride)[0].numpy()
+        writer.add_image("train/keypoints_2d",
+                         visualization.overlay_keypoints(img, pred_kp, gt_keypoints_2d=gt_kp), step)
+
+    # ------------------------------------------------------------- evaluation
+
+    def _evaluate_all(self, iteration_idx, state, val_loader) -> Dict:
+        """3D MKPE and PCK (and PCKh) over the validation loader (reference:
+        strategy.py:584-649): eval_step a batch (K1 decodes its heatmaps),
+        the metrics on the host."""
+        self._load_state(state)
+        pairs = self._put(self.engine.pairs(val_loader.pool.get_num_view_per_frame()))
+        int8_scales = None
+
+        def _dispatched():
+            nonlocal int8_scales
+            for batch in val_loader:
+                images = self._device_images(batch)
+                if int8_scales is None:
+                    int8_scales = self.engine.int8_calibrate(images, for_eval=True)
+                out = self.engine.eval_step(images, self._put(batch["proj_matrices"]),
+                                            self._put(batch["joint_valid"]), pairs,
+                                            int8_scales=int8_scales)
+                yield (batch["frame_valid"], batch["3d_keypoints"], batch["joint_valid"]), out
+
+        preds, gts, valids = [], [], []
+        for (mask, kp3d_gt, joint_valid), out in self._pipelined_fetch(_dispatched()):
+            mask = np.asarray(mask, bool)
+            preds.append(out["keypoints_3d"][mask])
+            gts.append(np.asarray(kp3d_gt)[mask])
+            valids.append(np.asarray(joint_valid)[mask].astype(np.float32))
+        pred, gt, valid = np.concatenate(preds), np.concatenate(gts), np.concatenate(valids)
+        thresholds, pcks = evaluation.compute_3d_pck_figure(pred, gt, valid)
+        results = {"mkpe": float(evaluation.compute_mkpe(pred, gt, valid)),
+                   "thresholds": list(thresholds), "pcks": pcks}
+        if self.al_cfg.DATA.TYPE != "ih26m":
+            pckh_thresholds, pckh_pcks = evaluation.compute_3d_pckh_figure(pred, gt)
+            results["pckh_thresholds"] = list(pckh_thresholds)
+            results["pckh_pcks"] = pckh_pcks
+        return results

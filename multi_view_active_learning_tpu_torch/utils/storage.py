@@ -65,12 +65,34 @@ def read_bytes(path) -> bytes:
     return fs.cat_file(fpath)
 
 
+def exists(path) -> bool:
+    if not is_remote(path):
+        return os.path.exists(path)
+    fs, fpath = _fs(path)
+    return fs.exists(fpath)
+
+
 def makedirs(path) -> None:
     if not is_remote(path):
         os.makedirs(path, exist_ok=True)
         return
     fs, fpath = _fs(path)
     fs.makedirs(fpath, exist_ok=True)
+
+
+def listdir(path):
+    """Base names of entries under `path` (sorted for remote backends,
+    whose listing order is backend-defined)."""
+    if not is_remote(path):
+        return os.listdir(path)
+    fs, fpath = _fs(path)
+    try:
+        entries = fs.ls(fpath, detail=False)
+    except FileNotFoundError:
+        # Object stores have no directory objects: a prefix nothing has
+        # been written under yet "does not exist" even right after makedirs.
+        return []
+    return sorted(name.rstrip("/").rsplit("/", 1)[-1] for name in entries)
 
 
 def join(base, *parts) -> str:

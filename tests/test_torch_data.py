@@ -17,10 +17,14 @@ trees:
     can land a value on the other side of a .5 rounding boundary).
 """
 
+import ctypes
+import fcntl
 import filecmp
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import textwrap
 
 import jax.numpy as jnp
@@ -43,6 +47,56 @@ from multi_view_active_learning_tpu_torch.data.pools import FramePool
 from multi_view_active_learning_tpu_torch.ops import image
 
 JOINTS, CAMS, FRAMES, IMG = 5, 3, 5, 64
+
+
+def _whole_jax_native_lib() -> None:
+    """Leave a whole ``native/libmval_host.so`` in place for the JAX loader.
+
+    The JAX loader runs ``make -C native`` when the library is missing, and
+    make links it in place.  Under pytest-xdist every worker collects
+    ``tests/test_native_loader.py``, whose skip condition calls the loader,
+    so on a fresh checkout several workers link the same file at once; a
+    worker that opens the library while another is still writing it fails
+    the load ("file too short") and the loader stays off for the rest of
+    that worker.  Here, under an fcntl lock in ``native/``, a library that
+    does not load is rebuilt with the same Makefile in a temporary
+    directory and renamed over the path, so a reader sees either no file or
+    a whole one."""
+    so_path = jax_native._SO_PATH
+    native_dir = os.path.dirname(so_path)
+    with open(os.path.join(native_dir, ".libmval_host.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            ctypes.CDLL(so_path)
+            return
+        except OSError:
+            pass
+        build = tempfile.mkdtemp(dir=native_dir)
+        try:
+            for name in ("Makefile", "mval_host.cc"):
+                shutil.copy(os.path.join(native_dir, name), build)
+            subprocess.run(["make", "-s", "-C", build], check=True, capture_output=True)
+            os.replace(os.path.join(build, os.path.basename(so_path)), so_path)
+        finally:
+            shutil.rmtree(build, ignore_errors=True)
+
+
+def _reset_jax_native_latch() -> None:
+    """Let the JAX loader load again in this worker: it latches itself off
+    after one failed load, and the collection of test_native_loader.py may
+    have met a half-written library (above)."""
+    jax_native._lib = None
+    jax_native._unavailable = False
+
+
+# Collection-time repair, once per worker and before any test runs: later
+# JAX tests in this worker (tests/test_datasets.py's native path among them)
+# then load the whole library instead of taking PIL.
+try:
+    _whole_jax_native_lib()
+    _reset_jax_native_latch()
+except (OSError, subprocess.CalledProcessError):
+    pass  # no compiler or libjpeg: the native tests fail on their own
 
 
 def _tree_files(root):
@@ -190,12 +244,18 @@ def _assert_prepared_equal(got, ref):
 
 
 @pytest.mark.parametrize("mode", ["pil", "native", "device_crop"])
-def test_prepare_views_host_matches_jax(trees, mode):
+def test_prepare_views_host_matches_jax(trees, mode, monkeypatch):
     """Byte-equal images: PIL, the native decoder (the port's own build),
-    and full frames under DATA.DEVICE_CROP; equal camera math in each."""
+    and full frames under DATA.DEVICE_CROP; equal camera math in each.  The
+    JAX loader is pointed at a whole library with its latch reset for this
+    test only (monkeypatch restores both), so nothing here turns it off for
+    later tests in the worker."""
     data = {"VIEW_CACHE_SIZE": 0, "USE_NATIVE_LOADER": mode == "native",
             "DEVICE_CROP": mode == "device_crop"}
     if mode == "native":
+        _whole_jax_native_lib()
+        monkeypatch.setattr(jax_native, "_lib", None)
+        monkeypatch.setattr(jax_native, "_unavailable", False)
         assert native.available() and jax_native.available(), "native decoder did not build"
     cfg, jcfg = _cfgs(trees, **data)
     ds, jds = build_dataset(cfg, "train"), jax_build_dataset(jcfg, "train")

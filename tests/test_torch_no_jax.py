@@ -1,10 +1,11 @@
-"""The port, chip_smoke.py and tools/profile_scoring_torch.py import nothing
-of JAX or the JAX package.
+"""The port, chip_smoke.py and its tools (tools/profile_scoring_torch.py,
+tools/ab_paths_torch.py) import nothing of JAX or the JAX package.
 
 An AST scan covers every import statement; a subprocess runs the port's
-CPU path (the engine's steps, and a 2-frame pool sweep with a decode
-worker) with an import hook that refuses the banned modules, and checks
-that none of them was loaded."""
+CPU path (the engine's steps, a 2-frame pool sweep with a decode worker,
+and a 2-step training run with its evaluation, checkpoints and metrics
+records, then a resume from its checkpoint) with an import hook that
+refuses the banned modules, and checks that none of them was loaded."""
 
 import ast
 import os
@@ -21,7 +22,8 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "multi_view_active_learning_tpu"}
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_scoring_torch.py")]
+             os.path.join(REPO, "tools", "profile_scoring_torch.py"),
+             os.path.join(REPO, "tools", "ab_paths_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -46,7 +48,9 @@ def test_port_has_the_expected_modules():
                  "kernels/decode", "kernels/pairwise", "kernels/deconv", "kernels/_build",
                  "strategy", "utils/__init__", "utils/storage", "utils/prng", "utils/kmeans",
                  "ops/image", "data/__init__", "data/pools", "data/panoptic", "data/ih26m",
-                 "data/synthetic", "data/native", "data/pipeline"):
+                 "data/synthetic", "data/native", "data/pipeline", "models/layers",
+                 "utils/checkpoint", "utils/evaluation", "utils/metrics_writer",
+                 "utils/visualization", "utils/profiling"):
         assert "multi_view_active_learning_tpu_torch/%s.py" % name in rel
 
 
@@ -73,6 +77,7 @@ SCRIPT = textwrap.dedent(
     sys.path.insert(0, %r)
     import numpy as np
     import torch
+    torch.set_num_threads(2)  # the suite's parallel workers share the host
     from multi_view_active_learning_tpu_torch.config import get_default_configs
     from multi_view_active_learning_tpu_torch.engine import Engine
     from multi_view_active_learning_tpu_torch.ops import coreset
@@ -123,6 +128,7 @@ SCRIPT = textwrap.dedent(
     labeled = torch.arange(20) >= 15
     assert coreset.k_center_greedy(feats, labeled, 4).shape == (4,)
     # A 2-frame pool sweep through FrameLoader with a decode worker.
+    import os
     import shutil
     import tempfile
     from multi_view_active_learning_tpu_torch.data import build_dataset, pipeline
@@ -148,6 +154,23 @@ SCRIPT = textwrap.dedent(
         assert len(sal["al_metric"]) == 2, sal
         assert not pipeline._shared_executor(1).submit(pipeline.cuda_initialized).result()
         pipeline.shutdown_shared_executors()
+        # Training: two steps with a log point each, then a resume.
+        from multi_view_active_learning_tpu_torch.utils import metrics_writer
+        metrics_writer._try_tb = lambda log_dir: None  # the JSONL record is enough here
+        cfg.TRAIN.BATCH_SIZE = 1
+        cfg.TRAIN.NUM_WORKERS = 0
+        cfg.TRAIN.LOG_EVERY_ITER = 1
+        cfg.TRAIN.OPTIM.TOTAL_STEPS = 2
+        cfg.TRAIN.VAL_SIZE = 1
+        state = strategy.run_fully_supervised_training(
+            strategy.new_state(), build_dataset(cfg, "train"), build_dataset(cfg, "val"))
+        assert int(state.step) == 2
+        cfg.TRAIN.RESTORE_FROM = os.path.join(
+            tmp, cfg.EXPR_NAME, "FULLY_SUPERVISED", "checkpoints", "CKPT-FINAL")
+        cfg.TRAIN.OPTIM.TOTAL_STEPS = 3
+        state = strategy.run_fully_supervised_training(
+            strategy.new_state(), build_dataset(cfg, "train"), build_dataset(cfg, "val"))
+        assert int(state.step) == 3
     finally:
         shutil.rmtree(tmp)
     loaded = {m for m in sys.modules if m.split(".")[0] in BANNED} - already
