@@ -36,7 +36,13 @@ the full-width CORESET step (``sweep_launches``).  Then training
 card for the sample config's HRNet-W32 SAL experiment cut in depth,
 PoseResNet-50 SUPERVISED with RandAugment and CLUSTER, and a CORESET run;
 RandAugment on the card against the CPU), whose K1 and K2 launches the
-``kernels`` line gives as ``workflow_launches``.
+``kernels`` line gives as ``workflow_launches``.  Last, data parallelism
+(``phase_distributed``): that CORESET run in one process at batches of 4,
+under a NCCL group of one (bit for bit the same), and as two gloo ranks
+sharing the card at batches of 2 a rank (``chip_smoke.py --cli-rank``
+processes), held to the one-process run, plus two NCCL ranks when there
+are two cards; each rank's K1 and K2 launches are the ``kernels`` line's
+``distributed_launches``.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as its last line
@@ -2064,14 +2070,17 @@ class _WorkflowSpy:
     train steps (a train batch feeds a step; every other batch is a scoring
     or evaluation batch, one K1 launch each), and times each AL iteration's
     scoring sweep, training (with its evaluations) and evaluations, and the
-    final AL_EVAL / EVAL, on the host clock with the card synchronized."""
+    final AL_EVAL / EVAL, on the host clock with the card synchronized.
+    With `time_steps`, each train step too (synchronized before and after:
+    `step_ms`)."""
 
-    def __init__(self):
+    def __init__(self, time_steps=False):
         import torch
         from multi_view_active_learning_tpu_torch import engine as engine_mod
         from multi_view_active_learning_tpu_torch import strategy as strategy_mod
 
         self.batches, self.train_steps, self.seconds = 0, 0, {}
+        self.step_ms = [] if time_steps else None
         self._restore = []
         spy = self
         loader_cls = strategy_mod.FrameLoader
@@ -2105,7 +2114,14 @@ class _WorkflowSpy:
 
         def counted_step(engine, *args, **kwargs):
             spy.train_steps += 1
-            return train_step(engine, *args, **kwargs)
+            if spy.step_ms is None:
+                return train_step(engine, *args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(engine, *args, **kwargs)
+            torch.cuda.synchronize()
+            spy.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
 
         patch(strategy_mod, "FrameLoader", CountingLoader)
         patch(engine_mod.Engine, "train_step", counted_step)
@@ -2413,6 +2429,346 @@ def phase_workflow(dev, tree, tmp):
             "min_distance_to_centers": launches["coreset"]["min_distance_to_centers"]}
 
 
+# The CLI under more than one process (phase_distributed): run (c) of
+# phase_workflow (SAL, CORESET, PoseResNet-50, the sample config's depth
+# cuts) from one tree and seed, as "one" (1 process, no group, TRAIN and
+# AL.INFERENCE batches of 4), "nccl1" (the same under a NCCL group of one,
+# where every collective runs), "gloo2" (2 ranks sharing card 0 over gloo,
+# batches of 2 a rank: the same global batches) and, with two cards or
+# more, "nccl2" (2 ranks, a card each).
+DIST_WORLD, DIST_BATCH = 2, 2
+# In float32 (TF32 off) at an LR of 1e-9 (tools/dist_agreement_torch.py on
+# the card: in bf16, the 62- and 124-crop batches' other cuDNN algorithms
+# move the BN statistics by a bf16 rounding, enough to flip the argmax of
+# a random-init heatmap, and at LR 1e-3 Adam turns a near-zero gradient's
+# rounding into a full +-lr step, so the two runs' sal_dicts part by
+# thousands of tolerances and no CORESET pick is decided by a gap above
+# their difference; tests/test_torch_workflow.py takes 1e-9 for the same
+# reason).  The BN statistics still fold at that LR, so the global
+# statistics decide what the ranks score.
+DIST_DTYPE, DIST_LR = "float32", 1e-9
+# Bars of the ranks' run against the one-process run: sal_dict within the
+# sweep tolerance (SAL_TOL, KP_*), inlier counts equal; the CORESET picks
+# that greedy gaps above four times the feature rows' difference decide,
+# equal and at least half of them; the log points' losses within rtol
+# 1e-4; RESULTS' MKPE within 0.01 and PCK / PCKh within 0.01 (a joint of one
+# of the 8 test frames moves them by 1/152).
+DIST_LOSS_RTOL, DIST_MKPE_ATOL, DIST_PCK_ATOL = 1e-4, 1e-2, 1e-2
+
+
+def _dist_yaml(tmp, name, tree, batch, dtype, lr):
+    return _workflow_yaml(
+        tmp, name, tree, "experiments/sample-config.yaml", POSE_ESTIMATOR__TYPE="POSE_RESNET",
+        POSE_ESTIMATOR__NUM_LAYERS=DEPTH, AL__STRATEGY="CORESET", TPU__INT8_SCORING=False,
+        TPU__COMPUTE_DTYPE=dtype, TRAIN__BATCH_SIZE=batch, AL__INFERENCE__BATCH_SIZE=batch,
+        TRAIN__OPTIM__LR=lr, **WORKFLOW_CUTS)
+
+
+def cli_rank(spec_path, rank):
+    """One process of a `phase_distributed` run (``chip_smoke.py --cli-rank
+    SPEC RANK``, started by `_run_ranks` with torchrun's environment): joins
+    the group the spec names, runs the CLI on the card with the launch
+    counters set to 0 just before it, and reports its launches, loader
+    batches, train-step ms, per-stage seconds, the files it opened for
+    writing under the run's LOG_DIR, each AL iteration's trained state (what
+    that iteration's CKPT-FINAL holds) and the CORESET step's features."""
+    import builtins
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Runs that must repeat bit for bit: cuDNN's nondeterministic backward
+    # algorithms (atomics) are out; cuBLAS is fixed by the environment
+    # (CUBLAS_WORKSPACE_CONFIG, set by _run_ranks).
+    torch.backends.cudnn.deterministic = True
+    from multi_view_active_learning_tpu_torch import kernels, parallel
+    from multi_view_active_learning_tpu_torch import strategy as strategy_mod
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["backend"]:
+        check(parallel.initialize_distributed(backend=spec["backend"]), "no process group")
+        check(parallel.process_index() == rank, "rank %d" % parallel.process_index())
+    writes, real_open = [], builtins.open
+
+    def recording_open(file, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax+") and isinstance(file, (str, bytes, os.PathLike)):
+            writes.append(os.path.abspath(os.fsdecode(file)))
+        return real_open(file, mode, *args, **kwargs)
+
+    states, train = [], strategy_mod.ActiveLearningStrategy._train
+
+    def keep_state(strategy, *args, **kwargs):
+        state = train(strategy, *args, **kwargs)
+        states.append({k: v.detach().cpu().clone() for k, v in state.flat.items()})
+        return state
+
+    spy = _WorkflowSpy(time_steps=True)
+    coresets = _CoreSetSpy(strategy_mod.coreset_ops)
+    strategy_mod.ActiveLearningStrategy._train = keep_state
+    strategy_mod.coreset_ops = coresets
+    builtins.open = recording_open
+    try:
+        kernels.reset_launch_counts()
+        out, seconds = _run_cli(spec["config"])
+        launches = kernels.launch_counts()
+    finally:
+        builtins.open = real_open
+        strategy_mod.coreset_ops = coresets.ops
+        strategy_mod.ActiveLearningStrategy._train = train
+        spy.remove()
+    cs = coresets.built[-1]
+    torch.save({"states": states, "features": np.asarray(cs.features), "n_sal": cs.n_sal,
+                "keys": list(cs.sal_keys)}, os.path.join(spec["report_dir"], "rank%d.pt" % rank))
+    with open(os.path.join(spec["report_dir"], "rank%d.json" % rank), "w") as f:
+        json.dump(dict(rank=rank, world=parallel.process_count(), card=torch.cuda.current_device(),
+                       launches=launches, loader_batches=spy.batches, train_steps=spy.train_steps,
+                       step_ms=spy.step_ms, seconds=dict(sorted(spy.seconds.items())), run_s=seconds,
+                       writes=sorted({w for w in writes if w.startswith(spec["log_dir"])}),
+                       expr_name=out.expr_name, coresets=len(coresets.built)), f)
+    parallel.shutdown()
+    left = stop_child_processes()
+    check(not left, "rank %d left processes running: %s" % (rank, left))
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(tmp, name, tree, world, batch, dtype, lr, backend, cards):
+    """The `world` processes of one run, started together with torchrun's
+    environment (none without a backend), on `cards`; any failure fails the
+    phase.  Returns {"reports", "saved" (per rank), "log_dir", "wall_s"}."""
+    import torch
+
+    path, _, log_dir = _dist_yaml(tmp, name, tree, batch, dtype, lr)
+    report_dir = os.path.join(tmp, "reports", name)
+    os.makedirs(report_dir, exist_ok=True)
+    spec = os.path.join(report_dir, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(config=path, backend=backend, log_dir=log_dir, report_dir=report_dir), f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(world):
+        rank_env = dict(env)
+        if backend:
+            rank_env.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(cards[rank]),
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cli-rank", spec, str(rank)],
+            env=rank_env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0,
+              "%s: rank %d exited %s:\n%s" % (name, rank, proc.returncode, out[-6000:]))
+    reports, saved = [], []
+    for rank in range(world):
+        with open(os.path.join(report_dir, "rank%d.json" % rank)) as f:
+            reports.append(json.load(f))
+        saved.append(torch.load(os.path.join(report_dir, "rank%d.pt" % rank), weights_only=False))
+    return dict(reports=reports, saved=saved, log_dir=log_dir, wall_s=wall_s)
+
+
+def _run_files(run):
+    """(guid logs and SAL-DICT as {name: bytes}, RESULTS) of a run."""
+    expr = _expr_dir(run["log_dir"])
+    logs = {}
+    for name in sorted(os.listdir(expr)):
+        if "GUID" in name or name.startswith("SAL-DICT"):
+            with open(os.path.join(expr, name), "rb") as f:
+                logs[name] = f.read()
+    with open(os.path.join(run["log_dir"], "results.json")) as f:
+        return logs, json.load(f)
+
+
+def _state_diff(a, b):
+    """The largest difference between two lists of flat-buffer dicts (0.0:
+    bit for bit; inf when their layouts differ)."""
+    if len(a) != len(b) or any(set(x) != set(y) for x, y in zip(a, b)):
+        return float("inf")
+    return max((float((x[k].double() - y[k].double()).abs().max()) if x[k].numel() else 0.0)
+               for x, y in zip(a, b) for k in x)
+
+
+def _check_ranks(run, name):
+    """Each rank launched K1 once a scoring or evaluation batch of its own
+    (its loaders' batches less its train steps) and K2 once (iteration 1's
+    CORESET step), ran every train step, used one stamp, and holds rank 0's
+    trained states bit for bit; rank 0 wrote the checkpoints and logs, the
+    others RESULTS only (every rank writes it, as the JAX package does)."""
+    reports, saved = run["reports"], run["saved"]
+    for r in reports:
+        k1 = r["loader_batches"] - r["train_steps"]
+        check(r["launches"]["fused_decode"] == k1, "%s rank %d: K1 %d for %d batches"
+              % (name, r["rank"], r["launches"]["fused_decode"], k1))
+        check(r["launches"]["min_distance_to_centers"] == 1 and r["coresets"] == 1,
+              "%s rank %d: K2 %d" % (name, r["rank"], r["launches"]["min_distance_to_centers"]))
+        check(r["train_steps"] == 2 * WF_STEPS, "%s rank %d: %d steps" % (name, r["rank"],
+                                                                        r["train_steps"]))
+        check(r["world"] == len(reports), "%s: world %d" % (name, r["world"]))
+        check(r["expr_name"] == reports[0]["expr_name"], "%s: stamps differ" % name)
+        diff = _state_diff(saved[r["rank"]]["states"], saved[0]["states"])
+        check(diff == 0.0, "%s: rank %d's trained states differ from rank 0's by %g"
+              % (name, r["rank"], diff))
+    check(os.path.basename(_expr_dir(run["log_dir"])) == reports[0]["expr_name"],
+          "%s: experiment directory" % name)
+    written = reports[0]["writes"]
+    for what in ("ITER-0/checkpoints/CKPT-FINAL", "ITER-1/checkpoints/CKPT-FINAL",
+                 "SAMPLED-GUID-ITER-1", "SAL-DICT-ITER-1"):
+        check(any(what in w for w in written), "%s: rank 0 did not write %s" % (name, what))
+    results = os.path.join(run["log_dir"], "results.json")
+    for r in reports[1:]:
+        check(set(r["writes"]) <= {results}, "%s: rank %d wrote %s" % (name, r["rank"], r["writes"]))
+
+
+def _run_agreement(ref, got):
+    """How the ranks' run `got` agrees with the one-process run `ref` (the
+    same global batches): the sal_dict's worst share of the sweep tolerance
+    (SAL_TOL, KP_*), inlier counts that differ, the largest CORESET
+    feature-row difference, the picks covered (each decided by a greedy gap
+    above four times that difference) and whether those are equal, the
+    iteration-0 draw, the pseudo-labels, and RESULTS side by side."""
+    (ref_logs, ref_res), (got_logs, got_res) = _run_files(ref), _run_files(got)
+    ref_sal, sal = (json.loads(x["SAL-DICT-ITER-1"]) for x in (ref_logs, got_logs))
+    worst, inliers = 0.0, 0
+    for guid in ref_sal["al_metric"]:
+        inliers += sal["inlier_count"][guid] != ref_sal["inlier_count"][guid]
+        for metric in ("sal_metric", "mkpe"):
+            a, b = sal[metric][guid], ref_sal[metric][guid]
+            worst = max(worst, abs(a - b) / (SAL_TOL + SAL_TOL * abs(b)))
+        a, b = (np.asarray(x["pred_3d_keypoints"][guid]) for x in (sal, ref_sal))
+        worst = max(worst, float(np.max(np.abs(a - b) / (KP_ATOL + KP_RTOL * np.abs(b)))))
+    rcs, gcs = ref["saved"][0], got["saved"][0]
+    n_sal = rcs["n_sal"]
+    order = [gcs["keys"].index(k) for k in rcs["keys"]]
+    feats = np.concatenate([gcs["features"][:n_sal][order], gcs["features"][n_sal:]])
+    row_err = float(np.linalg.norm(feats.astype(np.float64) - rcs["features"], axis=-1).max())
+    ref_picks, picks = (json.loads(x["SAMPLED-GUID-ITER-1"]) for x in (ref_logs, got_logs))
+    gaps = _greedy_gaps(rcs["features"], n_sal, len(ref_picks))
+    covered = next((i for i, g in enumerate(gaps) if g <= 4 * row_err), len(gaps))
+    pseudo = [json.loads(x.get("SAL-GUID-ITER-1", b"[]")) for x in (ref_logs, got_logs)]
+    losses = []
+    for run in (got, ref):
+        expr = _expr_dir(run["log_dir"])
+        records = []
+        for it in ("ITER-0", "ITER-1"):
+            with open(os.path.join(expr, it, "summary", "metrics.jsonl")) as f:
+                records += [r["value"] for r in map(json.loads, f) if r["tag"] == "loss/train"]
+        losses.append(records)
+    return dict(
+        train_losses=losses,
+        sal_dict_worst_share=worst, inlier_counts_differ=int(inliers), feature_row_err=row_err,
+        greedy_gaps=gaps, picks=len(ref_picks), picks_covered=covered,
+        covered_picks_equal=picks[:covered] == ref_picks[:covered],
+        picks_byte_equal=got_logs["SAMPLED-GUID-ITER-1"] == ref_logs["SAMPLED-GUID-ITER-1"],
+        iteration0_byte_equal=got_logs["SAMPLED-GUID-ITER-0"] == ref_logs["SAMPLED-GUID-ITER-0"],
+        pseudo_labels=[len(p) for p in pseudo], pseudo_labels_equal=pseudo[0] == pseudo[1],
+        results={size: dict(mkpe=[got_res[size]["mkpe"], r["mkpe"]],
+                            pck_max_diff=float(np.max(np.abs(np.subtract(got_res[size]["pcks"],
+                                                                         r["pcks"])))),
+                            pckh_max_diff=float(np.max(np.abs(np.subtract(
+                                got_res[size]["pckh_pcks"], r["pckh_pcks"])))))
+                 for size, r in ref_res.items()})
+
+
+def _timing(run):
+    """Each rank's median train-step ms and iteration-1 sweep seconds."""
+    return [dict(step_ms=statistics.median(r["step_ms"]),
+                 sweep_s=r["seconds"]["iteration 1/compute_sal_dict"], run_s=r["run_s"])
+            for r in run["reports"]]
+
+
+def distributed_runs(tree, tmp, dtype, lr):
+    """The phase's runs and what they show, without the agreement bars:
+    (runs, agreement of the ranks' runs with the one-process run)."""
+    import torch
+
+    runs = {"one": _run_ranks(tmp, "one", tree, 1, 2 * DIST_BATCH, dtype, lr, None, [0]),
+            "nccl1": _run_ranks(tmp, "nccl1", tree, 1, 2 * DIST_BATCH, dtype, lr, "nccl", [0]),
+            "gloo2": _run_ranks(tmp, "gloo2", tree, DIST_WORLD, DIST_BATCH, dtype, lr, "gloo",
+                                [0] * DIST_WORLD)}
+    if torch.cuda.device_count() >= DIST_WORLD:
+        runs["nccl2"] = _run_ranks(tmp, "nccl2", tree, DIST_WORLD, DIST_BATCH, dtype, lr, "nccl",
+                                   list(range(DIST_WORLD)))
+    for name, run in runs.items():
+        _check_ranks(run, name)
+    (one_logs, one_res), (logs, res) = _run_files(runs["one"]), _run_files(runs["nccl1"])
+    agreement = {name: _run_agreement(runs["one"], runs[name]) for name in runs
+                 if name.endswith("2")}
+    agreement["nccl1"] = dict(
+        logs_differ=sorted(n for n in set(one_logs) | set(logs) if one_logs.get(n) != logs.get(n)),
+        results_equal=one_res == res,
+        state_diff=_state_diff(runs["one"]["saved"][0]["states"], runs["nccl1"]["saved"][0]["states"]))
+    return runs, agreement
+
+
+def phase_distributed(tree, tmp):
+    """Data parallelism through the CLI (`distributed_runs`, DIST_DTYPE at
+    DIST_LR): the NCCL group of one equals no group bit for bit (guid logs,
+    SAL-DICT, RESULTS, both iterations' trained states); every ranks' run
+    passes `_check_ranks` (K1 once a batch of its own, K2 once, bit-equal
+    states, rank 1 writes RESULTS only) and agrees with the one-process
+    run at twice the batch within the DIST_* bars.  Prints each rank's
+    median train-step ms and iteration-1 sweep seconds beside the
+    one-process run's (ranks that share one card share its SMs: these are
+    not scaling figures).  Returns K1's and K2's launches by run."""
+    import torch
+
+    t_phase = time.perf_counter()
+    runs, agreement = distributed_runs(tree, os.path.join(tmp, "distributed"), DIST_DTYPE,
+                                       DIST_LR)
+    same = agreement["nccl1"]
+    check(not same["logs_differ"] and same["results_equal"] and same["state_diff"] == 0.0,
+          "the NCCL world of one differs from the run without a group: %s" % same)
+    for name, a in agreement.items():
+        if name == "nccl1":
+            continue
+        check(a["iteration0_byte_equal"], "%s: SAMPLED-GUID-ITER-0 differs" % name)
+        check(a["sal_dict_worst_share"] <= 1.0 and not a["inlier_counts_differ"],
+              "%s: sal_dict off by %g of its tolerance, %d inlier counts differ"
+              % (name, a["sal_dict_worst_share"], a["inlier_counts_differ"]))
+        check(a["covered_picks_equal"] and a["picks_covered"] >= a["picks"] // 2,
+              "%s: %d of %d picks decided by a gap above 4 x %g, equal: %s"
+              % (name, a["picks_covered"], a["picks"], a["feature_row_err"],
+                 a["covered_picks_equal"]))
+        check(a["pseudo_labels_equal"], "%s: SAL-GUID-ITER-1 differs" % name)
+        got, ref = a["train_losses"]
+        check(len(got) == len(ref) == 4 and np.allclose(got, ref, rtol=DIST_LOSS_RTOL, atol=0),
+              "%s: log-point losses %s against %s" % (name, got, ref))
+        for size, r in a["results"].items():
+            check(abs(r["mkpe"][0] - r["mkpe"][1]) <= DIST_MKPE_ATOL
+                  and r["pck_max_diff"] <= DIST_PCK_ATOL and r["pckh_max_diff"] <= DIST_PCK_ATOL,
+                  "%s: RESULTS[%s] %s" % (name, size, r))
+    timing = {name: _timing(run) for name, run in runs.items()}
+    emit("distributed", dtype=DIST_DTYPE, lr=DIST_LR, world=DIST_WORLD, batch_a_rank=DIST_BATCH,
+         cards=torch.cuda.device_count(), runs=sorted(runs), agreement=agreement, timing=timing,
+         wall_s={name: run["wall_s"] for name, run in runs.items()},
+         seconds=time.perf_counter() - t_phase)
+    return {kernel: {name: [r["launches"][kernel] for r in run["reports"]]
+                     for name, run in runs.items()}
+            for kernel in ("fused_decode", "min_distance_to_centers")}
+
+
 def run_phases():
     """Every phase in order: (the card's name and power limit, the kernels
     line's rows, seconds)."""
@@ -2446,6 +2802,7 @@ def run_phases():
         sweep_launches, golden, tree = phase_pool_sweep(dev, ctx, tmp)
         train_launches = phase_train(dev, tree, tmp)
         workflow_launches = phase_workflow(dev, tree, tmp)
+        distributed_launches = phase_distributed(tree, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # Each kernel's launches on the path that drives it.
@@ -2461,6 +2818,9 @@ def run_phases():
     # K1 in the CLI's HRNet SAL run (a), K2 in its CORESET run (c).
     rows[0]["workflow_launches"] = workflow_launches["fused_decode"]
     rows[1]["workflow_launches"] = workflow_launches["min_distance_to_centers"]
+    # K1 and K2 on each rank of phase_distributed's runs (run -> per rank).
+    rows[0]["distributed_launches"] = distributed_launches["fused_decode"]
+    rows[1]["distributed_launches"] = distributed_launches["min_distance_to_centers"]
     return smi, rows, time.perf_counter() - t0
 
 
@@ -2486,4 +2846,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--cli-rank":  # a process of phase_distributed
+        sys.exit(cli_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -29,7 +29,7 @@ numbers.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -228,13 +228,20 @@ def apply_ops(draws: Dict[str, np.ndarray], images: torch.Tensor,
 
 def rand_augment(rng_key: np.ndarray, images: torch.Tensor, heatmaps: torch.Tensor, num_aug: int,
                  magnitude: int, use_rotation: bool = True, use_image_aug: bool = True,
-                 const_magnitude: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                 const_magnitude: bool = True, total_rows: Optional[int] = None,
+                 row_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """`num_aug` random ops a sample (JAX data/augmentation.py:176-235;
     reference: dataset/augmentation.py:99-116) on float32 images
     ``[N, H, W, 3]`` in [0, 255] and heatmaps ``[N, K, h, w]``, from the
-    threefry key `rng_key` (utils/prng.py)."""
+    threefry key `rng_key` (utils/prng.py).  The draws are keyed by row:
+    with `total_rows`, the N samples are rows ``row_offset ..
+    row_offset + N - 1`` of a batch of `total_rows` (a rank's share of the
+    global batch), and take those rows' draws."""
     if num_aug == 0 or not (use_rotation or use_image_aug):
         return images, heatmaps
-    draws = draw_ops(rng_key, images.shape[0], num_aug, magnitude, use_rotation, use_image_aug,
-                     const_magnitude)
+    n = images.shape[0]
+    draws = draw_ops(rng_key, n if total_rows is None else total_rows, num_aug, magnitude,
+                     use_rotation, use_image_aug, const_magnitude)
+    if total_rows is not None:
+        draws = {name: value[row_offset:row_offset + n] for name, value in draws.items()}
     return apply_ops(draws, images, heatmaps)

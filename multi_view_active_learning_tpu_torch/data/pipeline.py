@@ -570,7 +570,9 @@ def device_prepare(images_u8, keypoints_2d, sigma, rng_key=None, stride: int = 4
 
     images_u8: uint8 [B, V, H, W, 3]; keypoints_2d: [B, V, K, 2] after the
     resize; sigma: [B].  Returns (images float32 [B, V, H, W, 3],
-    gt_heatmaps float32 [B, V, K, H / stride, W / stride])."""
+    gt_heatmaps float32 [B, V, K, H / stride, W / stride]).  Under a
+    process group the batch is this rank's rows of the global batch, and
+    RandAugment applies those rows' draws of the global batch's."""
     import torch
 
     from ..ops import heatmap
@@ -582,6 +584,7 @@ def device_prepare(images_u8, keypoints_2d, sigma, rng_key=None, stride: int = 4
         sigma.to(torch.float32)[:, None, None, None, None])  # [B, V, K, h, w]
     images = images_u8.to(torch.float32)
     if train and num_aug > 0:
+        from .. import parallel
         from . import augmentation
 
         if rng_key is None:
@@ -589,7 +592,8 @@ def device_prepare(images_u8, keypoints_2d, sigma, rng_key=None, stride: int = 4
         K = heat.shape[2]
         images, heat = augmentation.rand_augment(
             rng_key, images.reshape(B * V, H, W, 3), heat.reshape(B * V, K, h, w), num_aug,
-            magnitude, use_rotation, use_image_aug, const_magnitude)
+            magnitude, use_rotation, use_image_aug, const_magnitude,
+            total_rows=parallel.process_count() * B * V, row_offset=parallel.process_index() * B * V)
         images, heat = images.reshape(B, V, H, W, 3), heat.reshape(B, V, K, h, w)
     mean, std = _imagenet_stats(images_u8.device)
     images = (images / 255.0 - mean) / std

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -9,15 +10,17 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """`None` means the CUDA device and raises when there is none: a run
-    that was meant for the card must not quietly measure the CPU.  Pass
-    ``"cpu"`` (as the tests do) to run the plain versions of the kernels."""
+    that was meant for the card must not quietly measure the CPU.  Under
+    torchrun it is the rank's card, ``LOCAL_RANK``.  Pass ``"cpu"`` (as the
+    tests do) to run the plain versions of the kernels."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on "
                 "the CPU explicitly"
             )
-        return torch.device("cuda", torch.cuda.current_device())
+        local = os.environ.get("LOCAL_RANK")
+        return torch.device("cuda", int(local) if local else torch.cuda.current_device())
     return torch.device(device)
 
 

@@ -27,6 +27,15 @@ LR taken from the always-advancing step, and the step-skip (non-finite or
 clipped loss, or no real crop) selected on the device, so a step never
 waits on the host.
 
+Under a process group (``parallel``; one process a card) the engine
+computes what the JAX engine computes on the global batch of a ``'data'``
+mesh, each rank holding its rows: BatchNorm's train-mode statistics over
+the global batch (models/layers.py), the losses over the global count of
+real crops and valid joints, one all-reduce (a sum) of the flat gradient
+with the loss, so the step-skip and the update are the same bits on every
+rank; int8 calibration's activation maxima over all ranks; RANDOM's draws
+for the global batch, of which each rank keeps its rows.
+
 The engine owns the model and its inference weights (``load_state_dict``,
 or ``use_state`` for a TrainState, which refreshes them, the int8 weights
 and the K3 packs only when the state has changed), runs on the CUDA device
@@ -43,6 +52,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import parallel
 from .device import resolve_device, to_device
 from .kernels import deconv
 from .models import build_model, compute_dtype
@@ -88,11 +98,9 @@ def check_ported(cfg) -> None:
             raise NotImplementedError(
                 "%s=%r is not ported to PyTorch yet (ROADMAP %s)" % (key, value, item)
             )
-    if cfg.TPU.VIEW_AXIS != 1:
-        raise NotImplementedError(
-            "TPU.VIEW_AXIS=%r is not ported to PyTorch yet (ROADMAP Queue A9, "
-            "multi-GPU)" % cfg.TPU.VIEW_AXIS
-        )
+    # TPU.VIEW_AXIS > 1 raises (Queue A9b); a TPU.DATA_AXIS that is not
+    # the world size is a ValueError.
+    parallel.mesh_from_config(cfg)
     if cfg.TPU.HRNET_PACKED_MAX_CH > 0:
         raise NotImplementedError(
             "TPU.HRNET_PACKED_MAX_CH=%r is not ported to PyTorch yet (ROADMAP Queue A12, "
@@ -374,9 +382,9 @@ class Engine:
     def _loss_and_grads(self, state: TrainState, images, gt_heatmaps, per_view_joint_valid,
                         frame_valid):
         """The train-mode forward and backward on `state`'s weights:
-        (loss, gradients in parameter order, the first crop's heatmap
-        [K, h, w], the real crop count).  Each BatchNorm keeps its batch
-        statistics in its record."""
+        (this rank's share of the loss, its gradients in parameter order,
+        the first crop's heatmap [K, h, w], the global batch's real crop
+        count).  Each BatchNorm keeps its batch statistics in its record."""
         loss_type = self.cfg.TRAIN.LOSS
         if loss_type not in TRAIN_LOSSES:
             raise NotImplementedError("Unknown TRAIN.LOSS: %s" % loss_type)
@@ -389,8 +397,17 @@ class Engine:
         mask = (self._tensor(per_view_joint_valid, torch.bool)
                 & frame_valid[:, None, None]).reshape(B * V, -1, 1, 1)
         # The loss counts REAL crops only (JAX engine.py:161-166): padding
-        # rows in the denominator would dilute a tail batch's gradient.
-        n_valid_crops = torch.sum(frame_valid.to(torch.float32)) * V
+        # rows in the denominator would dilute a tail batch's gradient.  The
+        # denominators count the global batch (JAX's sum runs over the
+        # sharded batch), so each rank's loss is its share of the global
+        # loss and the ranks' gradients sum to the global loss's.
+        integral = loss_type in ("INTEGRAL", "MSE+INTEGRAL")
+        counts = [torch.sum(frame_valid.to(torch.float32)) * V]
+        if integral:
+            counts.append(torch.sum(heatmap_ops.integral_valid(gt, mask[:, :, 0, 0]))
+                          .to(torch.float32))
+        counts = parallel.all_reduce_sum(torch.stack(counts))
+        n_valid_crops = counts[0]
 
         leaves = {n: state.params[n].detach().requires_grad_() for n in self.param_names}
         with self._bound_model(leaves):
@@ -399,10 +416,11 @@ class Engine:
             if loss_type in ("MSE", "MSE+INTEGRAL"):
                 loss = heatmap_ops.heatmap_mse_loss(out, gt, mask,
                                                     num_samples=torch.clamp(n_valid_crops, min=1.0))
-            if loss_type in ("INTEGRAL", "MSE+INTEGRAL"):
+            if integral:
                 weight = self.cfg.TRAIN.INTEGRAL_WEIGHT if loss_type == "MSE+INTEGRAL" else 1.0
                 loss = loss + weight * heatmap_ops.integral_regression_loss(
-                    out, gt, mask[:, :, 0, 0], beta=self.cfg.TRAIN.INTEGRAL_BETA)
+                    out, gt, mask[:, :, 0, 0], beta=self.cfg.TRAIN.INTEGRAL_BETA,
+                    num_valid=counts[1])
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), grads, out[0].detach(), n_valid_crops
 
@@ -410,7 +428,8 @@ class Engine:
                        frame_valid) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss of a batch and its gradient with respect to
         each of `state.params`, which stay as they are (train_step's
-        arguments; only `state.params` is read)."""
+        arguments; only `state.params` is read).  Under a process group,
+        this rank's share of both (train_step sums them over the ranks)."""
         loss, grads, _, _ = self._loss_and_grads(state, images, gt_heatmaps,
                                                  per_view_joint_valid, frame_valid)
         for _, bn in self._bns:
@@ -427,7 +446,9 @@ class Engine:
         Returns (state, metrics) with metrics on the device: loss, skipped
         (the update was not applied), lr (the one this step used) and
         first_heatmap (the first crop's prediction [K, h, w], float32).
-        Nothing here waits on the card."""
+        Nothing here waits on the card.  Under a process group the batch is
+        this rank's rows of the global batch; loss and skipped are the
+        global batch's, and the state stays the same bits on every rank."""
         loss, grads, first_heatmap, n_valid_crops = self._loss_and_grads(
             state, images, gt_heatmaps, per_view_joint_valid, frame_valid)
         missing = [name for name, bn in self._bns if bn.batch_stats is None]
@@ -436,10 +457,15 @@ class Engine:
 
         with torch.no_grad():
             lr = self.lr_schedule(state.step)
+            # The gradient exchange, a SUM (each rank's gradient is its
+            # share's, not a mean over ranks), with the loss in the same
+            # collective: every rank then skips or steps alike.
+            g = parallel.all_reduce_sum(torch.cat([t.reshape(-1) for t in grads]
+                                                  + [loss.reshape(1)]))
+            g, loss = g[:-1], g[-1]
             ok = (torch.isfinite(loss) & (loss <= self.cfg.TRAIN.LOSS_CLIP_VALUE)
                   & (n_valid_crops > 0))
             # Adam as optax.scale_by_adam, with -lr applied outside it.
-            g = torch.cat([t.reshape(-1) for t in grads])
             p, mu, nu = state.flat["params"], state.flat["mu"], state.flat["nu"]
             count = state.count + 1
             new_mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
@@ -516,7 +542,9 @@ class Engine:
         """One-batch activation-scale calibration for static int8 inference.
         Returns the scale table to pass back as ``int8_scales``, or None when
         the int8 path (scoring, or eval with ``for_eval``) is off, so callers
-        can pass the result through unconditionally."""
+        can pass the result through unconditionally.  Under a process group
+        each activation's maximum is taken over every rank's rows (the
+        global batch's, as JAX calibrates)."""
         if not (self.use_int8_eval if for_eval else self.use_int8):
             return None
         _, scales = self._int8_forward(
@@ -565,7 +593,9 @@ class Engine:
         images: uint8 [B, V, H, W, 3]; proj_matrices: [B, V, 3, 4];
         joint_valid: [B, K] bool; pairs: [P, 2]; gt_keypoints_3d: [B, K, 3].
         RANDOM draws ``jax.random.uniform(key, (B,))``'s bits from `key`, a
-        threefry key of ``utils.prng`` (padded rows draw too); MPE / HP / BSB aggregate over the valid
+        threefry key of ``utils.prng`` (padded rows draw too; under a process
+        group the global batch's ``(B * world,)`` draws, of which this rank
+        keeps its rows); MPE / HP / BSB aggregate over the valid
         (view, joint) entries by their `*_aggregate` ("AVG" or "STD").  The
         forward is int8 when ``use_int8``, with the static ``int8_scales`` of
         ``int8_calibrate`` if given.  Returns keypoints_3d [B, K, 3],
@@ -599,7 +629,9 @@ class Engine:
         )
         B = heatmaps.shape[0]
         if al_strategy == "RANDOM":
-            al_metric = to_device(prng.uniform(key, (B,)), self.device)
+            rank = parallel.process_index()
+            draws = prng.uniform(key, (B * parallel.process_count(),))
+            al_metric = to_device(draws[rank * B:(rank + 1) * B], self.device)
         elif al_strategy == "TRIANGULATION":
             al_metric = res["metric"]
         elif al_strategy == "MPE":

@@ -5,7 +5,8 @@ Every ``csrc/*.cu`` file is compiled for ``sm_90a`` (Hopper) by its own
 ``build/libmval_kernels.so`` inside the package.  Each source exposes plain
 C entry points (pointers, ints, floats, a stream), so no PyTorch header is
 compiled and the whole build takes seconds.  The library is built at first
-use, never at import, and rebuilt when a source is newer than it.
+use, never at import, and rebuilt when a source is newer than it, by one
+process at a time.
 
 Each entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a nonzero code (a refused launch never runs, and a later
@@ -15,6 +16,7 @@ synchronize would not report it).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
@@ -113,9 +115,16 @@ def build() -> Tuple[float, str]:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if missing or stale."""
-    if _stale():
-        build()
+    """The kernels' shared library, built first if missing or stale.  The
+    ranks of a multi-process run share one build directory: an exclusive
+    lock on ``build/lock`` lets one of them build while the others wait
+    (the kernel frees the lock when its holder exits, however it exits),
+    and each then loads the fresh library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            build()
     lib = ctypes.CDLL(LIB_PATH)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -5,8 +5,9 @@ The port of the JAX package's models/quantize.py:
   * weights: symmetric per-output-channel s8, quantized once from the
     float32 weights (``quantize_state_dict``, at every weight load);
   * activations: symmetric per-tensor s8, ``round(x / sx)`` clipped to
-    +-127, with ``sx`` dynamic (max|x| / 127 of each conv input), static
-    (a table from a ``collect_scales=True`` calibration pass), or recorded;
+    +-127, with ``sx`` dynamic (max|x| / 127 of each conv input, the max
+    taken over every rank's rows under a process group), static (a table
+    from a ``collect_scales=True`` calibration pass), or recorded;
   * each conv is an s8 im2col product (channels-last, ``torch._int_mm``,
     s32 accumulation, exact) and one float32 epilogue that folds the BN:
     ``acc * (sx * ws * bn_scale) + bn_bias`` (+ ReLU), rounded to bf16;
@@ -35,6 +36,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..kernels import deconv
 from ..ops.int8 import int8_matmul
 from .pose_resnet import RESNET_SPEC, BasicBlock
@@ -62,7 +64,10 @@ class _ActScales:
     def scale_for(self, name: str, x: torch.Tensor) -> torch.Tensor:
         if self.table is not None:
             return self.table[name]
-        sx = torch.clamp(torch.amax(torch.abs(x.to(torch.float32))), min=1e-8) / 127.0
+        # Under a process group the maximum over every rank's rows: the
+        # global batch's scale, as JAX computes it on a sharded batch.
+        amax = parallel.all_reduce_max(torch.amax(torch.abs(x.to(torch.float32))))
+        sx = torch.clamp(amax, min=1e-8) / 127.0
         if self.collect:
             self.recorded[name] = sx
         return sx

@@ -128,6 +128,7 @@ def integral_regression_loss(
     joint_valid: Optional[torch.Tensor] = None,
     beta: float = 10.0,
     peak_threshold: float = 0.1,
+    num_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Soft-argmax coordinate regression (the JAX package's TRAIN.LOSS
     INTEGRAL, ops/heatmap.py:133-183 there; integral pose regression, Sun
@@ -137,8 +138,10 @@ def integral_regression_loss(
     prediction is the softmax(beta * heatmap) expectation; the target is
     the GT heatmap's linear expectation (its keypoint while the Gaussian
     lies in the crop).  Joints whose GT peak is at most `peak_threshold`
-    are dropped.  The error is L1 in units of the heatmap's extent,
-    |dx| / w + |dy| / h, averaged over the joints kept."""
+    are dropped (`integral_valid`).  The error is L1 in units of the
+    heatmap's extent, |dx| / w + |dy| / h, summed over the joints kept and
+    divided by their count, or by `num_valid` when given (the global batch's
+    count, of which this batch holds a share)."""
     h, w = pred.shape[-2], pred.shape[-1]
     pred_xy = soft_argmax(pred, stride=1.0, temperature=beta)  # [N, K, 2]
     tgt_sum = torch.sum(target, dim=(-2, -1))  # [N, K]
@@ -148,13 +151,21 @@ def integral_regression_loss(
     tx = torch.sum(torch.sum(probs, dim=-2) * xs, dim=-1)
     ty = torch.sum(torch.sum(probs, dim=-1) * ys, dim=-1)
     tgt_xy = torch.stack([tx, ty], dim=-1)  # [N, K, 2]
-    valid = torch.amax(target, dim=(-2, -1)) > peak_threshold  # [N, K]
-    if joint_valid is not None:
-        valid = valid & joint_valid
+    valid = integral_valid(target, joint_valid, peak_threshold)  # [N, K]
     extent = torch.tensor([float(w), float(h)], dtype=torch.float32, device=pred.device)
     err = torch.sum(torch.abs(pred_xy - tgt_xy) / extent, dim=-1)  # [N, K]
     err = torch.where(valid, err, torch.zeros_like(err))
-    return torch.sum(err) / torch.clamp(torch.sum(valid), min=1)
+    if num_valid is None:
+        num_valid = torch.sum(valid)
+    return torch.sum(err) / torch.clamp(num_valid, min=1)
+
+
+def integral_valid(target: torch.Tensor, joint_valid: Optional[torch.Tensor] = None,
+                   peak_threshold: float = 0.1) -> torch.Tensor:
+    """The joints `integral_regression_loss` keeps, [N, K] bool: GT peak
+    above `peak_threshold`, and `joint_valid` when given."""
+    valid = torch.amax(target, dim=(-2, -1)) > peak_threshold
+    return valid if joint_valid is None else valid & joint_valid
 
 
 def heatmap_mse_loss(

@@ -31,8 +31,17 @@ JAX strategy.py:1091-1316): ``run_eval`` and ``run_al_eval`` evaluate
 checkpoints on the test split, ``evaluate_2d_pckh`` decodes crop-space 2D
 keypoints through K1, ``cluster`` dumps per-frame poses or losses, and
 ``restore_dataset`` / ``_copy_previous_checkpoints`` resume an AL run from
-its guid logs and checkpoints.  workflow.py drives them.  One process does
-all of it; the multi-process loop is not ported yet (ROADMAP A9).
+its guid logs and checkpoints.  workflow.py drives them.
+
+Under a process group (``parallel``, one process a card; JAX
+strategy.py:102-224) every loader reads its rank's shard of the pool
+(``pool[rank::world]``, batch counts equalized), so a global batch is
+``BATCH_SIZE x world`` frames, rank r's rows at ``r * B ..``.  A sweep's
+outputs are all-gathered, one collective a batch (``_fetch_global``), and
+keyed by ``FrameLoader.global_batch_layout``: every rank holds the whole
+sal_dict and selects the same frames.  Rank 0 alone writes the guid logs,
+SAL-DICT, checkpoints, configs and records; a barrier follows every
+checkpoint save, so no rank reads one before it is whole.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 
 from . import engine as engine_mod
+from . import parallel
 from .data import FrameLoader
 from .data.pipeline import device_prepare
 from .device import to_device
@@ -120,14 +130,51 @@ class ActiveLearningStrategy:
         """Loader factory (reference: strategy.py:747-760).  `num_workers`
         follows the reference's split: TRAIN.NUM_WORKERS by default,
         AL.INFERENCE.NUM_WORKERS for the scoring loaders; 0 decodes in this
-        process."""
+        process.  `batch_size` is per card, as the reference's per-GPU DDP
+        batch: each rank loads its shard, so the global batch is
+        `batch_size` x world."""
         if num_workers is None:
             num_workers = self.al_cfg.TRAIN.NUM_WORKERS
         return FrameLoader(pool, self.al_cfg.DATA, self.al_cfg.POSE_ESTIMATOR.STRIDE,
-                           batch_size=batch_size, num_workers=num_workers)
+                           batch_size=batch_size, num_shards=parallel.process_count(),
+                           shard_index=parallel.process_index(), num_workers=num_workers)
 
     def _put(self, arr) -> torch.Tensor:
-        return to_device(np.ascontiguousarray(arr), self.device)
+        """A host array of this rank's rows on the device.  Under more than
+        one process it must have a batch dimension, or it could not be a
+        share of a global batch (JAX raises there too, :192-199)."""
+        arr = np.ascontiguousarray(arr)
+        if arr.ndim == 0 and parallel.process_count() > 1:
+            raise ValueError("a 0-d array cannot be this rank's rows of a global batch")
+        return to_device(arr, self.device)
+
+    def _fetch_global(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A batch's outputs for the global batch, on every rank (JAX
+        :212-224; the reference's sal_dict all_gather, strategy.py:1090-1147):
+        each leaf is every rank's rows concatenated in rank order, global
+        row ``r * B + i`` being rank r's row i (the order of
+        ``FrameLoader.global_batch_layout``).  The leaves travel packed in
+        one byte buffer, one collective a batch; under NCCL it is ordered on
+        the stream and the host does not wait (gloo waits).  The identity
+        without a process group."""
+        if not parallel.active():
+            return tree
+        flat = [value.contiguous().reshape(-1).view(torch.uint8) for value in tree.values()]
+        gathered = parallel.all_gather_rows(torch.cat(flat)[None])  # [world, bytes]
+        out, offset = {}, 0
+        for (name, value), part in zip(tree.items(), flat):
+            piece = gathered[:, offset:offset + part.numel()].contiguous().view(value.dtype)
+            out[name] = piece.reshape((-1,) + tuple(value.shape[1:]))
+            offset += part.numel()
+        return out
+
+    @staticmethod
+    def _batch_keys(loader: FrameLoader, index: int, batch: Dict):
+        """(guids, frame_valid) of the global batch `index`: the local
+        batch's in one process, every shard's under a process group."""
+        if loader.num_shards > 1:
+            return loader.global_batch_layout(index)
+        return batch["guid"], batch["frame_valid"]
 
     # Batches in flight in a sweep: enough queued to overlap host prep and
     # the copies with device compute, few enough to bound the device memory
@@ -151,10 +198,13 @@ class ActiveLearningStrategy:
     def _pipelined_fetch(self, dispatched):
         """Bounded dispatch-ahead for the sweep loops.  `dispatched` yields
         one (meta, tree) a batch: `meta` passes through, `tree` holds the
-        batch's device outputs.  Yields (meta, {name: numpy}) in order,
-        waiting on a batch's copy only when SWEEP_INFLIGHT_WINDOW batches are
-        in flight (a fetch inside the dispatch loop would serialize the next
-        batch's host prep against the card)."""
+        batch's device outputs (gathered over the ranks, `_fetch_global`).
+        Yields (meta, {name: numpy}) in order, waiting on a batch's copy
+        only when SWEEP_INFLIGHT_WINDOW batches are in flight (a fetch inside
+        the dispatch loop would serialize the next batch's host prep against
+        the card).  Every rank dispatches the same batches in the same
+        order (the loaders' batch counts are equalized), so the collectives
+        pair up."""
         pending = deque()
 
         def finish(item):
@@ -164,7 +214,7 @@ class ActiveLearningStrategy:
             return meta, {name: value.numpy() for name, value in host.items()}
 
         for meta, tree in dispatched:
-            pending.append((meta,) + self._start_fetch(tree))
+            pending.append((meta,) + self._start_fetch(self._fetch_global(tree)))
             if len(pending) >= self.SWEEP_INFLIGHT_WINDOW:
                 yield finish(pending.popleft())
         while pending:
@@ -212,7 +262,7 @@ class ActiveLearningStrategy:
                               % (self.al_cfg.AL.STRATEGY, al_num_frames))
             al_guids, sal_guids, sal_dict = self._sal_pseudo_labeling(
                 train_pool, al_num_frames, sal_num_frames, state, iteration)
-            if sal_dict:
+            if sal_dict and parallel.is_main():
                 if self.al_writer is not None:
                     self._write_sal_records(al_guids, sal_guids, sal_dict, iteration)
                 if sal_guids:
@@ -221,9 +271,10 @@ class ActiveLearningStrategy:
                         f.write(json.dumps(sal_guids))
                 with storage.open_file(self._expr_dir("SAL-DICT-ITER-%d" % iteration), "w") as f:
                     f.write(json.dumps(sal_dict))
-        storage.makedirs(self._expr_dir())
-        with storage.open_file(self._expr_dir("SAMPLED-GUID-ITER-%d" % iteration), "w") as f:
-            f.write(json.dumps(al_guids))
+        if parallel.is_main():
+            storage.makedirs(self._expr_dir())
+            with storage.open_file(self._expr_dir("SAMPLED-GUID-ITER-%d" % iteration), "w") as f:
+                f.write(json.dumps(al_guids))
         return train_pool
 
     def _write_sal_records(self, al_guids, sal_guids, sal_dict, iteration) -> None:
@@ -405,7 +456,7 @@ class ActiveLearningStrategy:
 
         def _dispatched():
             nonlocal key, int8_scales
-            for batch in loader:
+            for index, batch in enumerate(loader):
                 key, skey = prng.split(key)
                 images = self._device_images(batch)
                 if int8_scales is None:
@@ -425,7 +476,7 @@ class ActiveLearningStrategy:
                     hp_aggregate=cfg.AL.HP_CONFIG,
                     bsb_aggregate=cfg.AL.BSB_CONFIG,
                 )
-                yield (batch["guid"], batch["frame_valid"]), out
+                yield self._batch_keys(loader, index, batch), out
 
         try:
             for (guids, frame_valid), out in self._pipelined_fetch(_dispatched()):
@@ -473,9 +524,9 @@ class ActiveLearningStrategy:
         embeddings: "OrderedDict[str, np.ndarray]" = OrderedDict()
 
         def _dispatched():
-            for batch in loader:
+            for index, batch in enumerate(loader):
                 emb = self.engine.embed_step(self._device_images(batch))
-                yield (batch["guid"], batch["frame_valid"]), {"embedding": emb}
+                yield self._batch_keys(loader, index, batch), {"embedding": emb}
 
         try:
             for (guids, frame_valid), out in self._pipelined_fetch(_dispatched()):
@@ -505,12 +556,14 @@ class ActiveLearningStrategy:
         return self._train(-1, train_cfg, train_pool, val_pool, state)
 
     def _prepare_experiment(self, cfg):
-        """Reference: strategy.py:651-679.  (checkpoints dir, writer)."""
+        """Reference: strategy.py:651-679.  (checkpoints dir, writer); rank 0
+        writes the config (the writer writes on rank 0 only)."""
         experiment_dir = storage.join(cfg.LOG_DIR, cfg.EXPR_NAME)
         checkpoints_dir = storage.join(experiment_dir, "checkpoints")
-        storage.makedirs(checkpoints_dir)
-        with storage.open_file(storage.join(experiment_dir, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
+        if parallel.is_main():
+            storage.makedirs(checkpoints_dir)
+            with storage.open_file(storage.join(experiment_dir, "config.yaml"), "w") as f:
+                f.write(cfg.dump())
         return checkpoints_dir, MetricsWriter(storage.join(experiment_dir, "summary"))
 
     def _load_weights(self, cfg, state: TrainState) -> TrainState:
@@ -528,12 +581,14 @@ class ActiveLearningStrategy:
         return state
 
     def _save_point(self, checkpoints_dir, state, epoch, step, mkpe, lr=None) -> None:
-        """The step-named checkpoint and the rolling CKPT-FINAL.  One process
-        writes and reads them, so the JAX package's barrier after a save
-        has nobody to wait for (multi-process runs: ROADMAP A9)."""
+        """The step-named checkpoint and the rolling CKPT-FINAL, written by
+        rank 0 (``ckpt.save_checkpoints``), then a barrier (JAX :940, :981):
+        no rank goes on to read this CKPT-FINAL (the next AL iteration's
+        scorer, AL_EVAL) before it is whole."""
         ckpt.save_checkpoints(
             [os.path.join(checkpoints_dir, "CKPT-E%d-MKPE%.2f" % (step, mkpe)),
              os.path.join(checkpoints_dir, "CKPT-FINAL")], state, epoch, lr)
+        parallel.process_barrier("ckpt/%s/%d" % (checkpoints_dir, step))
 
     def _train(self, iteration_idx, train_cfg, train_pool, val_pool, state):
         """The training loop (reference: strategy.py:422-546; JAX
@@ -596,8 +651,9 @@ class ActiveLearningStrategy:
                                                   eval_results["pckh_thresholds"],
                                                   eval_results["pckh_pcks"])
                         writer.add_scalar("steps_per_sec", steps_per_sec, global_step)
-                        self._log_train_figures(writer, metrics["first_heatmap"], images, gt_heat,
-                                                global_step)
+                        if parallel.is_main():  # rank 0's first crop, rendered where it is kept
+                            self._log_train_figures(writer, metrics["first_heatmap"], images,
+                                                    gt_heat, global_step)
                         for k, v in step_timer.summary().items():
                             writer.add_scalar("perf/%s" % k, v, global_step)
                         for dev, stats in profiling.device_memory_stats().items():
@@ -656,7 +712,7 @@ class ActiveLearningStrategy:
     def _evaluate_all(self, iteration_idx, state, val_loader) -> Dict:
         """3D MKPE and PCK (and PCKh) over the validation loader (reference:
         strategy.py:584-649): eval_step a batch (K1 decodes its heatmaps),
-        the metrics on the host."""
+        the metrics on the host, over every rank's frames."""
         self._load_state(state)
         pairs = self._put(self.engine.pairs(val_loader.pool.get_num_view_per_frame()))
         int8_scales = None
@@ -667,17 +723,20 @@ class ActiveLearningStrategy:
                 images = self._device_images(batch)
                 if int8_scales is None:
                     int8_scales = self.engine.int8_calibrate(images, for_eval=True)
-                out = self.engine.eval_step(images, self._put(batch["proj_matrices"]),
-                                            self._put(batch["joint_valid"]), pairs,
-                                            int8_scales=int8_scales)
-                yield (batch["frame_valid"], batch["3d_keypoints"], batch["joint_valid"]), out
+                joint_valid = self._put(batch["joint_valid"])
+                out = self.engine.eval_step(images, self._put(batch["proj_matrices"]), joint_valid,
+                                            pairs, int8_scales=int8_scales)
+                # The GT rides with the predictions, gathered with them.
+                yield None, {"keypoints_3d": out["keypoints_3d"], "joint_valid": joint_valid,
+                             "gt": self._put(batch["3d_keypoints"]),
+                             "frame_valid": self._put(batch["frame_valid"])}
 
         preds, gts, valids = [], [], []
-        for (mask, kp3d_gt, joint_valid), out in self._pipelined_fetch(_dispatched()):
-            mask = np.asarray(mask, bool)
+        for _, out in self._pipelined_fetch(_dispatched()):
+            mask = out["frame_valid"].astype(bool)
             preds.append(out["keypoints_3d"][mask])
-            gts.append(np.asarray(kp3d_gt)[mask])
-            valids.append(np.asarray(joint_valid)[mask].astype(np.float32))
+            gts.append(out["gt"][mask])
+            valids.append(out["joint_valid"][mask].astype(np.float32))
         pred, gt, valid = np.concatenate(preds), np.concatenate(gts), np.concatenate(valids)
         thresholds, pcks = evaluation.compute_3d_pck_figure(pred, gt, valid)
         results = {"mkpe": float(evaluation.compute_mkpe(pred, gt, valid)),
@@ -707,13 +766,14 @@ class ActiveLearningStrategy:
                 heatmaps = self.engine.forward(images, int8_scales,
                                                use_int8=self.engine.use_int8_eval)
                 coords = heatmap_ops.decode_keypoints_bbox(heatmaps, self._put(batch["square_box"]))
-                yield (batch["frame_valid"], batch["2d_after_crop"]), {"coords": coords}
+                yield None, {"coords": coords, "gt": self._put(batch["2d_after_crop"]),
+                             "frame_valid": self._put(batch["frame_valid"])}
 
         preds, gts = [], []
-        for (mask, gt_2d), out in self._pipelined_fetch(_dispatched()):
-            mask = np.asarray(mask, bool)
+        for _, out in self._pipelined_fetch(_dispatched()):
+            mask = out["frame_valid"].astype(bool)
             preds.append(out["coords"][mask].reshape(-1, self.num_joints, 2))
-            gts.append(np.asarray(gt_2d)[mask].reshape(-1, self.num_joints, 2))
+            gts.append(out["gt"][mask].reshape(-1, self.num_joints, 2))
         thresholds, pcks = evaluation.compute_pckh_2d_figure(np.concatenate(preds),
                                                              np.concatenate(gts))
         return list(thresholds), pcks
@@ -785,9 +845,9 @@ class ActiveLearningStrategy:
             loader = self._get_loader(train_pool, cfg.TRAIN.BATCH_SIZE)
 
             def _dispatched():
-                for batch in loader:
+                for index, batch in enumerate(loader):
                     images, gt_heat = self._device_batch(batch, train=False)
-                    yield (batch["guid"], batch["frame_valid"]), {
+                    yield self._batch_keys(loader, index, batch), {
                         "loss": self.engine.loss_step(images, gt_heat)}
 
             try:
@@ -799,8 +859,9 @@ class ActiveLearningStrategy:
                 loader.close()
         else:
             raise ValueError("AL.CLUSTER.TYPE must be POSE or LOSS")
-        with storage.open_file(cfg.AL.CLUSTER.SAVE_PATH, "w") as f:
-            json.dump(cluster_dict, f)
+        if parallel.is_main():
+            with storage.open_file(cfg.AL.CLUSTER.SAVE_PATH, "w") as f:
+                json.dump(cluster_dict, f)
         return cluster_dict
 
     # ------------------------------------------------------- resume / restore
@@ -847,14 +908,17 @@ class ActiveLearningStrategy:
         TRAIN.RESTORE_FROM / INIT_WEIGHT (reference: strategy.py:850-866)."""
         state = self._load_weights(self.al_cfg, state)
         path = self._expr_dir("INIT-WEIGHT")
-        storage.makedirs(self._expr_dir())
-        ckpt.save_checkpoint(path, state)
+        if parallel.is_main():
+            storage.makedirs(self._expr_dir())
+        ckpt.save_checkpoint(path, state)  # rank 0 writes
+        parallel.process_barrier("init-weight/%s" % path)
         self._logger.info("Initial AL weights saved at %s." % path)
         return path
 
     def prepare_al_experiments(self) -> None:
         """The experiment directory and its AL writer, with the config's
-        COMMENT (reference: strategy.py:267-277)."""
+        COMMENT (reference: strategy.py:267-277); the writer writes on rank
+        0 only."""
         storage.makedirs(self._expr_dir())
         self.al_writer = MetricsWriter(self._expr_dir("AL"))
         self.al_writer.add_text("comment", self.al_cfg.COMMENT, 0)

@@ -2,7 +2,7 @@
 
 The port's own copy of the JAX package's utils/__init__.py (reference:
 utils/__init__.py:15-84, a colorlog logger with rank-gated levels and a
-tqdm bridge).  The port runs one process, so no level is gated by rank.
+tqdm bridge).  The loggers of a rank other than 0 log at WARNING.
 """
 
 import logging
@@ -14,17 +14,31 @@ _ROOT = "mval_torch"
 _configured = False
 
 
+def _rank() -> int:
+    """This process's rank once a process group exists, else 0.  Only
+    consulted when torch.distributed is already imported: the decode
+    workers import this module and never torch."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def get_logger(name: str = "mval_torch", level: int = logging.INFO) -> logging.Logger:
-    """A logger under the port's root, which writes to stderr."""
+    """A logger under the port's root, which writes to stderr; at WARNING
+    on a rank other than 0 (the port's loggers inherit the root's level,
+    so one call after the group is made gates them all)."""
     global _configured
+    root = logging.getLogger(_ROOT)
     if not _configured:
         handler = logging.StreamHandler(sys.stderr)
         handler.setFormatter(logging.Formatter(_FORMAT, datefmt="%H:%M:%S"))
-        root = logging.getLogger(_ROOT)
         root.addHandler(handler)
         root.setLevel(level)
         root.propagate = False
         _configured = True
+    if _rank() != 0:
+        root.setLevel(logging.WARNING)
     return logging.getLogger(_ROOT + "." + name)
 
 

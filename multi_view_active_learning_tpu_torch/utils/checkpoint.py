@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import parallel
 from . import get_logger, storage
 
 _PREFIX = "module."
@@ -70,7 +71,11 @@ def _write(path: str, data: bytes) -> None:
 def save_checkpoints(paths, state, epoch: int = 0, lr: Optional[float] = None) -> None:
     """Save `state` (an ``engine.TrainState``) under every path: one copy to
     the host and one serialization, then the same bytes to each file,
-    overwriting (as the reference does)."""
+    overwriting (as the reference does).  Under a process group only rank 0
+    writes (every rank holds the same state); the others return at once,
+    and the caller's barrier keeps them from reading the files early."""
+    if not parallel.is_main():
+        return
     buf = io.BytesIO()
     torch.save(_payload(state, epoch, lr), buf)
     data = buf.getvalue()

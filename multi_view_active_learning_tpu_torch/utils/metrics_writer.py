@@ -6,7 +6,8 @@ loss/train, 3D MKPE, "3DPCK@t/average", per-keypoint curves, figures, the
 sal/* histograms, the experiment's comment; reference: strategy.py:83-109,
 651-679, 791-848), one JSON object a line, mirrored to TensorBoard when
 ``torch.utils.tensorboard`` imports.  Images land as PNGs under
-``<log_dir>/images/``.
+``<log_dir>/images/``.  Under a process group only rank 0's writer writes;
+on the other ranks it makes no directory and records nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import parallel
 from . import storage
 
 
@@ -40,8 +42,12 @@ def _try_tb(log_dir: str):
 
 class MetricsWriter:
     def __init__(self, log_dir: str):
-        storage.makedirs(log_dir)
         self.log_dir = log_dir
+        self._jsonl = self._tb = None
+        self.enabled = parallel.is_main()
+        if not self.enabled:
+            return
+        storage.makedirs(log_dir)
         if storage.is_remote(log_dir):
             # Object stores cannot append: each writer streams a new
             # numbered shard; readers join metrics-*.jsonl in name order.
@@ -81,6 +87,8 @@ class MetricsWriter:
     def add_image(self, tag: str, image, step: int) -> None:
         """An HWC uint8 image: a PNG under <log_dir>/images/, a JSONL
         pointer to it, and the TensorBoard mirror."""
+        if not self.enabled:
+            return
         arr = np.ascontiguousarray(np.asarray(image, dtype=np.uint8))
         name = "%s-%d.png" % (tag.replace("/", "_"), int(step))
         rel = "images/" + name
@@ -105,6 +113,8 @@ class MetricsWriter:
         curve figures (reference: strategy.py:808-848)."""
         from . import visualization
 
+        if not self.enabled:
+            return
         num_joints = len(pcks[0])
         per_joint = [[] for _ in range(num_joints)]
         avgs = []
@@ -126,6 +136,8 @@ class MetricsWriter:
                            visualization.plot_pckh_figure(thresholds, avgs), step)
 
     def _write(self, record: dict) -> None:
+        if not self.enabled:
+            return
         record["time"] = time.time()
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
@@ -133,6 +145,8 @@ class MetricsWriter:
     def close(self) -> None:
         # An explicit close raises (for remote shards it is the upload);
         # only the exit finalizer is quiet.
+        if not self.enabled:
+            return
         self._finalizer.detach()
         try:
             self._jsonl.close()

@@ -1,9 +1,14 @@
 """Experiment driver and CLI of the port.
 
     python -m multi_view_active_learning_tpu_torch.workflow --config_file exp.yaml [--device cpu]
+    python -m torch.distributed.run --nproc_per_node N \
+        -m multi_view_active_learning_tpu_torch.workflow --config_file exp.yaml [--device cpu]
 
 The port's counterpart of the JAX package's workflow.py (:41-263 there;
-reference: workflow.py:29-273), for one process: the six EXPR_TYPEs.
+reference: workflow.py:29-273): the six EXPR_TYPEs, in one process or in
+one process a card under torchrun (NCCL between cards, gloo with
+``--device cpu``), where every rank computes its shard of each global
+batch of TRAIN.BATCH_SIZE x N frames and rank 0 writes (``parallel``).
 
   * AL / SAL: for each iteration from AL.START_ITER (after copying the
     earlier iterations' checkpoints and guid logs from
@@ -18,10 +23,12 @@ reference: workflow.py:29-273), for one process: the six EXPR_TYPEs.
 
 Every artifact hangs off ``EXPR_NAME-<timestamp>`` under LOG_DIR, and the
 results are written as JSON to RESULTS (a temporary file when unset).
-The run uses the CUDA card unless ``--device`` (or ``device=``) names
-another device: the port's counterpart of JAX_PLATFORMS.  Without a card
-and without ``--device cpu`` it raises (device.resolve_device).  Runs of
-more than one process raise NotImplementedError (ROADMAP A9).
+The run uses the CUDA card (the rank's, ``LOCAL_RANK``) unless
+``--device`` (or ``device=``) names another device: the port's counterpart
+of JAX_PLATFORMS.  Without a card and without ``--device cpu`` it raises
+(device.resolve_device).  ``TPU.DATA_AXIS`` must be -1 or the number of
+processes (ValueError); ``TPU.VIEW_AXIS > 1`` raises NotImplementedError
+(ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -127,8 +134,13 @@ def run_al_iteration(cfg, iteration: int, device=None) -> None:
 
 
 def run_experiment(cfg, device=None) -> Dict:
-    """Dispatch on EXPR_TYPE; returns the eval dict (empty for CLUSTER)."""
-    parallel.initialize_distributed()
+    """Dispatch on EXPR_TYPE; returns the eval dict (empty for CLUSTER).
+    Every rank writes its result to RESULTS, as the JAX package does."""
+    logger = get_logger("workflow")
+    if parallel.initialize_distributed(device=device):
+        logger.info("Distributed: process %d/%d" % (parallel.process_index(),
+                                                     parallel.process_count()))
+    logger.info("Mesh: %s" % (parallel.mesh_from_config(cfg),))
     result: Dict = {}
     if cfg.EXPR_TYPE in ("AL", "SAL"):
         strategy = ActiveLearningStrategy(cfg, device)
@@ -136,7 +148,8 @@ def run_experiment(cfg, device=None) -> Dict:
         if cfg.AL.START_ITER != 0:
             if not cfg.AL.PREVIOUS_AL_LOG_DIR:
                 raise ValueError("AL.START_ITER != 0 requires AL.PREVIOUS_AL_LOG_DIR")
-            strategy._copy_previous_checkpoints()
+            if parallel.is_main():  # one writer to the shared log directory
+                strategy._copy_previous_checkpoints()
             parallel.process_barrier("copy-prev-ckpts/%s" % cfg.EXPR_NAME)
         strategy.al_writer.close()
         del strategy
@@ -180,18 +193,24 @@ def run_experiment_eval(cfg, device=None) -> Dict:
 
 def main(argv=None, device=None) -> Optional[FlowOutput]:
     """The CLI.  `device` (or ``--device``) picks the torch device; the
-    default is the CUDA card."""
+    default is the CUDA card.  Under torchrun it joins the other ranks
+    first (``parallel.initialize_distributed``), and leaves the group at
+    the end when it made it."""
     argparser = argparse.ArgumentParser()
     argparser.add_argument("--config_file", help="Path to experiment config file.", default="")
     argparser.add_argument("--device", default=None,
                            help="torch device to run on (default: the CUDA card; 'cpu' to run "
                                 "the plain versions of the kernels on the CPU)")
     args = argparser.parse_args(argv)
-    device = resolve_device(args.device if args.device is not None else device)
+    requested = args.device if args.device is not None else device
+    # The group first: on a card it picks the rank's card, which the
+    # device then resolves to.
+    joined = parallel.active()
+    owned = parallel.initialize_distributed(device=requested) and not joined
+    device = resolve_device(requested)
     cfg = config_lib.get_default_configs()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
-    parallel.initialize_distributed()
     logger = get_logger("workflow")
     logger.info("Merged configuration from %s." % (args.config_file or "<defaults>"))
     logger.info("Experiment type: %s; device %s" % (cfg.EXPR_TYPE, device))
@@ -203,6 +222,8 @@ def main(argv=None, device=None) -> Optional[FlowOutput]:
             cfg.RESULTS = f.name
     logger.info("Results will be saved to %s" % cfg.RESULTS)
     result = run_experiment(cfg, device)
+    if owned:  # a group this call made, the run's collectives done
+        parallel.shutdown()
     if result:
         output = prepare_output(cfg, result)
         print(output)

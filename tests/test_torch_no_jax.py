@@ -1,5 +1,6 @@
 """The port, chip_smoke.py and its tools (tools/profile_scoring_torch.py,
-tools/ab_paths_torch.py) import nothing of JAX or the JAX package.
+tools/ab_paths_torch.py, tools/dist_agreement_torch.py) import nothing of
+JAX or the JAX package.
 
 An AST scan covers every import statement; a subprocess runs the port's
 CPU path (the engine's steps, a 2-frame pool sweep with a decode worker,
@@ -7,7 +8,11 @@ a 2-step training run with its evaluation, checkpoints and metrics
 records, then a resume from its checkpoint, and the CLI on a 2-frame SAL
 experiment with ``--device cpu`` and RandAugment on) with an import hook
 that refuses the banned modules, and checks that none of them was
-loaded."""
+loaded.  The modules that run under a process group (parallel/, the
+engine's collectives, the strategy's gathers, the rank-0 writes in
+utils/checkpoint.py and utils/metrics_writer.py) are in the scan; the rank
+processes of a 2-process CLI run refuse the same modules in
+tests/test_torch_distributed.py."""
 
 import ast
 import os
@@ -25,7 +30,8 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "multi_view_active_learning_tpu"}
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "profile_scoring_torch.py"),
-             os.path.join(REPO, "tools", "ab_paths_torch.py")]
+             os.path.join(REPO, "tools", "ab_paths_torch.py"),
+             os.path.join(REPO, "tools", "dist_agreement_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

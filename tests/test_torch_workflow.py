@@ -23,9 +23,10 @@ PoseResNet-18 in float32, scored and trained in batches of 2:
   * **CLUSTER**: POSE's JSON equal; LOSS's per-frame losses within rtol 1e-4.
   * ``evaluate_2d_pckh`` on the val frames: the same thresholds, per-joint
     PCKh within 1e-6 (a fraction of 2 x 3 crops: equal hits).
-  * Port only: the CLI needs ``--device cpu`` without a card, and a world of
-    two processes (or TPU.VIEW_AXIS 2) raises NotImplementedError naming
-    ROADMAP A9.
+  * Port only: the CLI needs ``--device cpu`` without a card; a
+    TPU.DATA_AXIS that is not the world size raises ValueError, and
+    TPU.VIEW_AXIS 2 raises NotImplementedError naming ROADMAP A9b (runs of
+    more than one process: tests/test_torch_distributed.py).
 
 Both packages start from the same weights: each one's ``new_state(salt)`` is
 the port's ``init_state`` from ``RANDOM_SEED + salt``, given to JAX through
@@ -108,7 +109,8 @@ DATA:
   NUM_AUG: {num_aug}
   AUG_MAGNITUDE: 9
   USE_CONST_AUG_MAGNITUDE: false
-TPU: {{COMPUTE_DTYPE: "float32", INT8_SCORING: false, VIEW_AXIS: {view_axis}}}
+TPU: {{COMPUTE_DTYPE: "float32", INT8_SCORING: false, DATA_AXIS: {data_axis},
+      VIEW_AXIS: {view_axis}}}
 """
 
 
@@ -125,7 +127,7 @@ def _two_torch_threads():
 def _write_cfg(tmp, tag, side, tree, **fields):
     opts = dict(name="cli", expr_type="SAL", al=AL_FRAMES, sal=SAL_FRAMES, start_iter=0,
                 previous="", cluster="POSE", steps=2, num_aug=0, joints=JOINTS, tree=tree,
-                view_axis=1)
+                data_axis=-1, view_axis=1)
     opts.update(fields)
     log_dir = os.path.join(tmp, tag, side)
     os.makedirs(log_dir, exist_ok=True)
@@ -434,16 +436,22 @@ def test_cli_needs_a_device_without_a_card(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["world_size", "view_axis"])
-def test_more_than_one_process_raises_a9(tree, tmp_path, monkeypatch, how):
+def test_more_than_one_process_raises_a9(tree, tmp_path, how):
+    """A TPU.DATA_AXIS of 2 in a world of one process is a ValueError, as the
+    JAX package's make_mesh raises for a mesh that does not match its
+    devices; TPU.VIEW_AXIS 2 (view sharding) raises naming A9b."""
     path, _ = _write_cfg(str(tmp_path), "a9", "port", tree,
+                         data_axis=2 if how == "world_size" else -1,
                          view_axis=2 if how == "view_axis" else 1)
     if how == "world_size":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A9"):
-        workflow.main(["--config_file", path, "--device", "cpu"])
-    if how == "world_size":
-        with pytest.raises(NotImplementedError, match="A9"):
-            parallel.initialize_distributed(num_processes=2)
-        monkeypatch.delenv("WORLD_SIZE")
+        with pytest.raises(ValueError, match="does not match 1 processes"):
+            workflow.main(["--config_file", path, "--device", "cpu"])
+        with pytest.raises(ValueError, match="does not match 3 processes"):
+            parallel.make_mesh(2, 1, world=3)
+        assert parallel.make_mesh(-1, 1, world=3) == parallel.Mesh(3, 1)
+        # One process without torchrun's environment has no group to join.
         assert parallel.initialize_distributed() is False and parallel.process_index() == 0
         assert parallel.broadcast_string("k", "v") == "v"
+    else:
+        with pytest.raises(NotImplementedError, match="A9b"):
+            workflow.main(["--config_file", path, "--device", "cpu"])
