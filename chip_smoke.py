@@ -42,7 +42,18 @@ under a NCCL group of one (bit for bit the same), and as two gloo ranks
 sharing the card at batches of 2 a rank (``chip_smoke.py --cli-rank``
 processes), held to the one-process run, plus two NCCL ranks when there
 are two cards; each rank's K1 and K2 launches are the ``kernels`` line's
-``distributed_launches``.
+``distributed_launches``.  Serving (``phase_serving``, after the EMBEDDING
+path): PoseResNet-50 artifacts (static B=4 and symbolic batch in bf16, the
+int8 backbone with static scales, the K3 and K4 heads) and HRNet-W32 at
+B=1 are exported with ``torch.export`` at full width, then loaded and
+called at B=1 and 4 in a fresh process (``chip_smoke.py --serve-load``)
+that refuses JAX and the port's engine, models and config; their outputs
+are held to the eager serve function's and each call's launches are
+counted there (K1 once, K3 / K4 three times: the ``kernels`` line's
+``serving_launches``); tools/bench_serving_torch.py then times the bf16
+and int8 artifacts.  Last, the tools that show the port learns
+(``phase_learning``): tools/validate_learning_torch.py at its defaults
+with --int8_compare must print VALIDATION PASSED.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as its last line
@@ -985,6 +996,8 @@ def phase_main_path(dev):
         check(launches[name] == 0, "kernel %s launched on the standard-head path" % name)
     emit("main_path", batch=BATCH, views=VIEWS, img=IMG, joints=JOINTS, depth=DEPTH,
          pairs=len(pairs), steps=steps, coreset_ms=coreset_ms, pool=POOL, pick=PICK,
+         bf16_step_ms=steps["bfloat16"]["step_ms"],
+         bf16_step_ms_before_registered_ops=PARENT_BF16_STEP_MS,
          tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
          launches=launches)
     small = torch.from_numpy(rng.integers(
@@ -2769,6 +2782,291 @@ def phase_distributed(tree, tmp):
             for kernel in ("fused_decode", "min_distance_to_centers")}
 
 
+# -- serving (phase_serving) and the learning tools (phase_learning) ---------
+
+# The artifacts phase_serving exports at full width (PoseResNet-50 and
+# HRNet-W32, 31 views, 256x256, K=19, bf16 compute, seeded weights): (name,
+# model, TPU options, int8 (static scales), export batch (None: symbolic),
+# batches each is called at in the fresh process).
+SERVE_ARTIFACTS = [
+    ("pose_resnet50_bf16_b4", "POSE_RESNET", {}, False, 4, (4,)),
+    ("pose_resnet50_bf16_sym", "POSE_RESNET", {}, False, None, (1, 4)),
+    ("hrnet_w32_bf16_b1", "HRNET", {}, False, 1, (1,)),
+    ("pose_resnet50_int8_sym", "POSE_RESNET", {"INT8_SCORING": True}, True, None, (1, 4)),
+    ("pose_resnet50_k3_b4", "POSE_RESNET", {"PALLAS_HEAD": True}, False, 4, (4,)),
+    ("pose_resnet50_k4_b4", "POSE_RESNET", {"INT8_SCORING": True, "INT8_DECONV": True}, True, 4,
+     (4,)),
+]
+# The head kernel an artifact's graph calls three times (once a deconv layer).
+SERVE_HEADS = {"pose_resnet50_k3_b4": "fused_deconv_bn_relu",
+               "pose_resnet50_k4_b4": "fused_deconv_bn_relu_int8"}
+# bench_serving_torch on these artifacts (bf16 and int8, B=1 latency and
+# B=1 / 4 throughput).
+SERVE_BENCH = ("pose_resnet50_bf16_sym", "pose_resnet50_int8_sym")
+SERVE_BENCH_ARGS = ["--requests", "50", "--batches", "1,4", "--warmup_s", "2"]
+# An artifact against the eager serve function on the same inputs: the
+# same aten ops on the same card, but in another process, where cuDNN may
+# pick another bf16 algorithm; so the heatmaps within one bf16 step of
+# their scale, the keypoints equal wherever the map's top two values lie
+# more than twice that apart, the confidence within it.
+SERVE_ATOL_OF_SCALE = 2.0**-7
+# The bf16 main-path score_step before the kernels became registered
+# operators, as PERF.md §5 records it (H100 80GB HBM3, 700 W).
+PARENT_BF16_STEP_MS = 22.444
+# validate_learning_torch's bar (tools/validate_learning.py:103-105).
+LEARN_MKPE, LEARN_PCK5 = 3.0, 0.95
+SERVE_BANNED = ("jax", "jaxlib", "flax", "optax", "multi_view_active_learning_tpu")
+SERVE_PORT_BANNED = ("multi_view_active_learning_tpu_torch.engine",
+                     "multi_view_active_learning_tpu_torch.models",
+                     "multi_view_active_learning_tpu_torch.config")
+
+
+def _serve_banned(name):
+    return name.split(".")[0] in SERVE_BANNED or any(
+        name == b or name.startswith(b + ".") for b in SERVE_PORT_BANNED)
+
+
+class _RefuseServeImports:
+    """An import hook: the fresh serving process may load torch and the
+    port's kernel registrations and loader, nothing of JAX and not the
+    port's engine, models or config."""
+
+    def find_spec(self, name, path=None, target=None):
+        if _serve_banned(name):
+            raise ImportError("refused import: " + name)
+        return None
+
+
+def serve_load(spec_path):
+    """The fresh process of phase_serving (``chip_smoke.py --serve-load
+    SPEC``): loads each artifact, calls it at its batches on the card, and
+    writes the outputs, each call's kernel launches, the load seconds and
+    any refused module that was loaded."""
+    sys.meta_path.insert(0, _RefuseServeImports())
+    sys.path.insert(0, REPO)
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels, serving
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    requests = np.load(spec["requests"])
+    report = {}
+    for name, a in spec["artifacts"].items():
+        t0 = time.perf_counter()
+        call = serving.load_serving(a["path"], device=dev)
+        load_s = time.perf_counter() - t0
+        launches = {}
+        for b in a["calls"]:
+            images = torch.from_numpy(requests["images%d" % b]).to(dev)
+            box = torch.from_numpy(requests["box%d" % b]).to(dev)
+            call(images, box)
+            sync()
+            kernels.reset_launch_counts()
+            out = call(images, box)
+            sync()
+            launches[str(b)] = kernels.launch_counts()
+            np.savez(os.path.join(spec["out"], "%s_b%d.npz" % (name, b)),
+                     **{k: v.cpu().numpy() for k, v in out.items()})
+        report[name] = dict(load_s=load_s, launches=launches, device=str(call.device))
+    report["refused_loaded"] = sorted(m for m in sys.modules if _serve_banned(m))
+    with open(spec["report"], "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _serve_requests(tmp):
+    """uint8 requests at B=1 and 4 with non-square boxes, saved for the
+    fresh process."""
+    rng = np.random.default_rng(21)
+    arrays = {}
+    for b in (1, 4):
+        arrays["images%d" % b] = rng.integers(0, 256, size=(b, VIEWS, IMG, IMG, 3)).astype(np.uint8)
+        lt = rng.uniform(0, 200, size=(b, VIEWS, 2))
+        wh = rng.uniform(300, 900, size=(b, VIEWS, 2))
+        arrays["box%d" % b] = np.concatenate([lt, lt + wh], axis=-1).astype(np.float32)
+    path = os.path.join(tmp, "serve_requests.npz")
+    np.savez(path, **arrays)
+    return path, arrays
+
+
+def _serve_agreement(got, ref):
+    """(heatmaps' max error over their scale, keypoints differing where the
+    argmax is unique, maps with a unique argmax, confidence's max error
+    over the heatmaps' scale) of an artifact's outputs against eager's."""
+    scale = float(np.abs(ref["heatmaps"]).max())
+    atol = SERVE_ATOL_OF_SCALE * scale
+    heat_err = float(np.abs(got["heatmaps"] - ref["heatmaps"]).max()) / scale
+    h = ref["heatmaps"]
+    flat = np.moveaxis(h, -1, -3).reshape(h.shape[:-3] + (h.shape[-1], -1))
+    top = np.sort(flat, axis=-1)[..., -2:]
+    unique = top[..., 1] - top[..., 0] > 2 * atol
+    kp_differ = int(np.sum(np.any(got["keypoints"] != ref["keypoints"], axis=-1) & unique))
+    conf_err = float(np.abs(got["confidence"] - ref["confidence"]).max()) / scale
+    return heat_err, kp_differ, float(unique.mean()), conf_err
+
+
+def _tool_main(main, argv):
+    """(exit code, stdout) of a tool's main(argv) run in this process; its
+    stdout is echoed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    return rc, text
+
+
+def _tools():
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+
+
+def phase_serving(dev, ctx, tmp):
+    """Serving at full width (serving.py): each of SERVE_ARTIFACTS exported
+    on the card (export seconds, MB), its graph calling the registered
+    kernel operators (K1 once, the head kernel three times), then loaded and
+    called in a fresh process (``--serve-load``) that refuses JAX and the
+    port's engine, models and config; its outputs against the eager serve
+    function's on the same inputs, and each call's launches from that
+    process's counters.  Then tools/bench_serving_torch.py on the bf16 and
+    int8 symbolic artifacts.  Returns the launches one serve call makes of
+    each kernel on the artifacts that drive it."""
+    import torch
+    from multi_view_active_learning_tpu_torch import serving
+
+    t_phase = time.perf_counter()
+    serve_dir = os.path.join(tmp, "serving")
+    os.makedirs(os.path.join(serve_dir, "out"))
+    requests_path, requests = _serve_requests(serve_dir)
+    artifacts, eager = {}, {}
+    for name, model, tpu, int8, batch, calls in SERVE_ARTIFACTS:
+        state_dict = ctx["state_dict"] if model == "POSE_RESNET" else hrnet_state_dict()
+        engine = _engine("bfloat16", dev, state_dict, model=model, **tpu)
+        engine.cfg.DATA.INPUT_HEIGHT = engine.cfg.DATA.INPUT_WIDTH = IMG  # the artifact's crops
+        scales = engine.int8_calibrate(ctx["images"]) if int8 else None
+        check((scales is not None) == int8, "%s: int8 calibration" % name)
+        t0 = time.perf_counter()
+        ep = serving.export_serving(engine, None, batch, VIEWS, int8_scales=scales)
+        export_s = time.perf_counter() - t0
+        path = serving.save_serving(ep, os.path.join(serve_dir, name + serving.SERVING_SUFFIX))
+        ops = [str(n.target) for n in ep.graph.nodes if str(n.target).startswith("mval.")]
+        want = ["mval.%s.default" % SERVE_HEADS[name]] * 3 if name in SERVE_HEADS else []
+        check(ops == want + ["mval.fused_decode.default"], "%s: graph calls %s" % (name, ops))
+        module = serving.build_serve_fn(engine, None, scales)
+        eager[name] = {}
+        with torch.inference_mode():
+            for b in calls:
+                out = module(torch.from_numpy(requests["images%d" % b]).to(dev),
+                             torch.from_numpy(requests["box%d" % b]).to(dev))
+                eager[name][b] = {k: v.cpu().numpy() for k, v in out.items()}
+        artifacts[name] = dict(path=path, calls=list(calls), export_s=export_s,
+                               mb=os.path.getsize(path) / 1e6, batch=batch or "b",
+                               graph_ops=len(ops))
+        del engine, module, ep
+        torch.cuda.empty_cache()
+
+    spec = dict(artifacts={n: dict(path=a["path"], calls=a["calls"]) for n, a in artifacts.items()},
+                device=str(dev), requests=requests_path, out=os.path.join(serve_dir, "out"),
+                report=os.path.join(serve_dir, "report.json"))
+    spec_path = os.path.join(serve_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-load", spec_path],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, "the fresh serving process failed:\n%s" % proc.stderr[-6000:])
+    fresh_s = time.perf_counter() - t0
+    with open(spec["report"]) as f:
+        report = json.load(f)
+    check(not report["refused_loaded"], "the serving process loaded %s" % report["refused_loaded"])
+    serving_launches = {}
+    for name, a in artifacts.items():
+        a["load_s"] = report[name]["load_s"]
+        a["calls"] = {}
+        for b in eager[name]:
+            got = dict(np.load(os.path.join(spec["out"], "%s_b%d.npz" % (name, b))))
+            ref = eager[name][b]
+            shapes = {k: got[k].shape for k in got}
+            check(shapes == {"heatmaps": (b, VIEWS, IMG // 4, IMG // 4, JOINTS),
+                             "keypoints": (b, VIEWS, JOINTS, 2), "confidence": (b, VIEWS, JOINTS)}
+                  and all(np.isfinite(v).all() for v in got.values()),
+                  "%s at B=%d: outputs %s" % (name, b, shapes))
+            heat_err, kp_differ, unique, conf_err = _serve_agreement(got, ref)
+            check(heat_err <= SERVE_ATOL_OF_SCALE and kp_differ == 0
+                  and conf_err <= SERVE_ATOL_OF_SCALE,
+                  "%s at B=%d against eager: heatmaps %g of scale, %d unique-argmax keypoints "
+                  "differ, confidence %g" % (name, b, heat_err, kp_differ, conf_err))
+            launches = report[name]["launches"][str(b)]
+            head = SERVE_HEADS.get(name)
+            for kernel, n in launches.items():
+                want = 1 if kernel == "fused_decode" else 3 if kernel == head else 0
+                check(n == want, "%s at B=%d: %s launched %d times a call, want %d"
+                      % (name, b, kernel, n, want))
+                if n:
+                    serving_launches[kernel] = n
+            a["calls"][b] = dict(heat_err_of_scale=heat_err, unique_argmax_share=unique,
+                                 keypoints_differ=kp_differ, confidence_err_of_scale=conf_err,
+                                 launches=launches)
+    emit("serving", views=VIEWS, img=IMG, joints=JOINTS, dtype="bfloat16", artifacts=artifacts,
+         fresh_process_s=fresh_s, atol_of_scale=SERVE_ATOL_OF_SCALE)
+
+    _tools()
+    import bench_serving_torch
+
+    bench = {}
+    for name in SERVE_BENCH:
+        rc, text = _tool_main(bench_serving_torch.main,
+                              ["--artifact", artifacts[name]["path"]] + SERVE_BENCH_ARGS)
+        check(rc == 0, "bench_serving_torch on %s: exit %d" % (name, rc))
+        bench[name] = json.loads(text.strip().splitlines()[-1])
+        check(bench[name]["device"] == torch.cuda.get_device_name(0), "%s: bench device" % name)
+    emit("serving_bench", bench=bench, args=SERVE_BENCH_ARGS,
+         seconds=time.perf_counter() - t_phase)
+    for kernel in ("fused_decode", "fused_deconv_bn_relu", "fused_deconv_bn_relu_int8"):
+        check(serving_launches.get(kernel), "%s was not launched by a serve call" % kernel)
+    serving_launches["min_distance_to_centers"] = 0
+    return serving_launches
+
+
+def _line(text, prefix):
+    return [line for line in text.splitlines() if line.startswith(prefix)]
+
+
+def phase_learning(tmp):
+    """The tools that prove the port learns, on the card: tools/
+    validate_learning_torch.py at its defaults (PoseResNet-18, 64x64,
+    float32, B=4, 2000 steps) with --int8_compare must print VALIDATION
+    PASSED (train-set MKPE < 3.0, 3D-PCK@5 > 0.95); its train seconds, MKPE,
+    PCK@5 and int8-compare rows are printed.  (tools/validate_al_gain_torch.py
+    runs on the card through its own command: its --calibrate alone trains
+    twice, which would take this script past half its time limit.)"""
+    _tools()
+    import validate_learning_torch
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rc, text = _tool_main(validate_learning_torch.main,
+                          ["--int8_compare", "--workdir", os.path.join(tmp, "validate")])
+    validate_s = time.perf_counter() - t0
+    check("VALIDATION PASSED" in text, "validate_learning_torch did not pass:\n%s" % text[-3000:])
+    mkpe_line = _line(text, "train-set MKPE:")[0].split()
+    train_line = _line(text, "train time:")[0].split()
+    rows = [line for line in text.splitlines()
+            if " vs float [" in line or "[CORESET]" in line or line.startswith(
+                ("median per-frame", "eval MKPE", "GATE VIOLATION", "note:", "INT8 COMPARE"))]
+    emit("learning", steps=2000, train_s=float(train_line[2].rstrip("s")),
+         train_set_mkpe=float(mkpe_line[2]), pck5=float(mkpe_line[4]),
+         bar=dict(mkpe=LEARN_MKPE, pck5=LEARN_PCK5), validation="PASSED", exit_code=rc,
+         int8_compare=_line(text, "INT8 COMPARE")[0].split()[-1], int8_compare_rows=rows,
+         tool_s=validate_s, seconds=time.perf_counter() - t_phase)
+
+
 def run_phases():
     """Every phase in order: (the card's name and power limit, the kernels
     line's rows, seconds)."""
@@ -2799,10 +3097,12 @@ def run_phases():
     phase_embedding(dev, ctx)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        serving_launches = phase_serving(dev, ctx, tmp)
         sweep_launches, golden, tree = phase_pool_sweep(dev, ctx, tmp)
         train_launches = phase_train(dev, tree, tmp)
         workflow_launches = phase_workflow(dev, tree, tmp)
         distributed_launches = phase_distributed(tree, tmp)
+        phase_learning(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # Each kernel's launches on the path that drives it.
@@ -2821,6 +3121,9 @@ def run_phases():
     # K1 and K2 on each rank of phase_distributed's runs (run -> per rank).
     rows[0]["distributed_launches"] = distributed_launches["fused_decode"]
     rows[1]["distributed_launches"] = distributed_launches["min_distance_to_centers"]
+    # Each kernel's launches in one serve call of the artifact that drives it.
+    for row in rows:
+        row["serving_launches"] = serving_launches[row["name"]]
     return smi, rows, time.perf_counter() - t0
 
 
@@ -2848,4 +3151,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--cli-rank":  # a process of phase_distributed
         sys.exit(cli_rank(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-load":  # the process of phase_serving
+        sys.exit(serve_load(sys.argv[2]))
     sys.exit(main())

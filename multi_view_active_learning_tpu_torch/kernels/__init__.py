@@ -7,10 +7,13 @@ PyTorch version:
     and int8 (``csrc/deconv.cu``).
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and binds the C
-entry points with ctypes; importing this package builds nothing.
+entry points with ctypes; importing this package builds nothing.  ``ops``
+registers K1, K3 and K4 as the operators ``torch.ops.mval.*``, which the
+wrappers call (and an exported serving artifact needs registered).
 """
 
 from . import decode, deconv, pairwise
+from . import ops  # noqa: E402  (registers torch.ops.mval; needs decode and deconv)
 
 KERNELS = {
     "fused_decode": decode.fused_decode,

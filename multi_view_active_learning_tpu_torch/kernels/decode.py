@@ -9,9 +9,11 @@ the peak value and the soft-argmax, packed as [M, 8] rows
 to C: whether the rows can be streamed into shared memory by bulk copies
 (16-byte aligned rows of a multiple of 16 bytes that fit) and reduced by a
 block each, several blocks per SM with an equal contiguous share of the
-rows, or take the kernel's scalar path, one warp per row.  A CPU tensor
-goes to ``fused_decode_plain``; a CUDA tensor launches the kernel or
-raises.  ``fused_decode.launches`` counts kernel launches.
+rows, or take the kernel's scalar path, one warp per row.  The wrapper
+calls the registered operator ``torch.ops.mval.fused_decode``
+(kernels/ops.py): a CPU tensor goes to ``fused_decode_plain``; a CUDA
+tensor launches the kernel (``launch``) or raises.
+``fused_decode.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -127,40 +129,50 @@ def fused_decode_plain(
     return torch.stack([x, y, peak, soft_x, soft_y, zero, zero, zero], dim=-1)
 
 
+def launch(heatmaps_flat: torch.Tensor, width: int, stride: float) -> torch.Tensor:
+    """Launch K1 on [M, h*w] float32 rows on a card: the launch plan from
+    the tensor's address, strides and the card's SMs, then the packed
+    [M, 8] result.  Raises on what the kernel does not take and on a
+    refused launch.  Counts nothing: ``torch.ops.mval.fused_decode``'s
+    CUDA kernel (kernels/ops.py) counts its launches."""
+    m, hw = heatmaps_flat.shape
+    if hw == 0:
+        raise ValueError("fused_decode needs rows of at least one value")
+    if m > 1 and hw > 1 and heatmaps_flat.stride(1) != 1:
+        raise ValueError("fused_decode needs rows of unit stride")
+    plan = plan_for(heatmaps_flat, width)
+    plan_arg = (ctypes.c_longlong * PLAN_LEN)(*plan)
+    device = heatmaps_flat.device
+    packed = torch.empty((m, OUT_COLS), dtype=torch.float32, device=device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.mval_fused_decode(
+            heatmaps_flat.data_ptr(), packed.data_ptr(), plan_arg, PLAN_LEN,
+            float(stride), stream,
+        )
+    _build.check(code, "mval_fused_decode")
+    return packed
+
+
 def fused_decode(
     heatmaps_flat: torch.Tensor, width: int, stride: float
 ) -> Dict[str, torch.Tensor]:
     """[M, h*w] float32 rows -> {"coords" [M, 2], "peak" [M],
-    "soft_coords" [M, 2]}, views of one packed [M, 8] result."""
+    "soft_coords" [M, 2]}, views of one packed [M, 8] result, through
+    ``torch.ops.mval.fused_decode`` (kernels/ops.py): the plain version on
+    a CPU tensor, K1 on a CUDA tensor, and a traced call in an exported
+    graph."""
     if heatmaps_flat.dim() != 2:
         raise ValueError("expected [M, h*w] heatmaps, got %s" % (tuple(heatmaps_flat.shape),))
-    m, hw = heatmaps_flat.shape
+    hw = heatmaps_flat.shape[1]
     if width <= 0 or hw % width:
         raise ValueError("row length %d is not a multiple of width %d" % (hw, width))
     if heatmaps_flat.dtype != torch.float32:
         raise TypeError("fused_decode takes float32 heatmaps, got %s" % heatmaps_flat.dtype)
-    device = heatmaps_flat.device
-    if device.type == "cpu":
-        packed = fused_decode_plain(heatmaps_flat, width, stride)
-    elif device.type == "cuda":
-        if hw == 0:
-            raise ValueError("fused_decode needs rows of at least one value")
-        if m > 1 and hw > 1 and heatmaps_flat.stride(1) != 1:
-            raise ValueError("fused_decode needs rows of unit stride")
-        plan = plan_for(heatmaps_flat, width)
-        plan_arg = (ctypes.c_longlong * PLAN_LEN)(*plan)
-        packed = torch.empty((m, OUT_COLS), dtype=torch.float32, device=device)
-        lib = _build.load_library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            code = lib.mval_fused_decode(
-                heatmaps_flat.data_ptr(), packed.data_ptr(), plan_arg, PLAN_LEN,
-                float(stride), stream,
-            )
-        _build.check(code, "mval_fused_decode")
-        fused_decode.launches += 1
-    else:
-        raise RuntimeError("fused_decode has no path for device %s" % device)
+    if heatmaps_flat.device.type not in ("cpu", "cuda"):
+        raise RuntimeError("fused_decode has no path for device %s" % heatmaps_flat.device)
+    packed = torch.ops.mval.fused_decode(heatmaps_flat, width, float(stride))
     return {
         "coords": packed[:, 0:2],
         "peak": packed[:, 2],

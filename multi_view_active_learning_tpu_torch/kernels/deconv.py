@@ -26,8 +26,11 @@ weight load on the engine paths, through ``fused_deconv_bn_relu_packed`` /
 ``fused_deconv_bn_relu_int8_packed``); the public functions on raw weights
 pack per call.  ``tile_plan`` is the kernels' tiling plan (TMA maps, boxes,
 tap offsets, tile counts), computed here and passed to the C entry points.
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises.  ``<kernel>.launches`` counts kernel launches.
+The packed entry points call the registered operators
+``torch.ops.mval.fused_deconv_bn_relu`` / ``fused_deconv_bn_relu_int8``
+(kernels/ops.py), whose operands are plain tensors: a CPU tensor goes to
+the plain version; a CUDA tensor launches the kernel or raises.
+``<kernel>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -279,7 +282,7 @@ def _check_ops(x: torch.Tensor, ops, name: str) -> None:
 
 
 def _check_device(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError("%s has no path for device %s" % (name, x.device))
 
 
@@ -297,7 +300,8 @@ def _check_cuda(x: torch.Tensor, cout: int, name: str, *operands: torch.Tensor) 
 
 def launch(x: torch.Tensor, ops, act_scale=None) -> torch.Tensor:
     """Launch K3 (``ops`` a K3Operands) or K4 (a K4Operands, with the
-    activation scale) on packed operands; the wrappers count launches."""
+    activation scale) on packed operands; the operators' CUDA kernels
+    (kernels/ops.py) count launches."""
     n, h, w, cin = x.shape
     cout = ops.wpk.shape[1]
     int8 = isinstance(ops, K4Operands)
@@ -328,8 +332,6 @@ def fused_deconv_bn_relu(x, weight, scale, bias) -> torch.Tensor:
     weight [Cin, Cout, 4, 4], scale/bias [Cout] (folded BN) ->
     [N, 2H, 2W, Cout] in x's type.  Packs the weights per call."""
     _check(x, weight, "fused_deconv_bn_relu")
-    if x.device.type == "cpu":
-        return fused_deconv_bn_relu_plain(x, weight, scale, bias)
     _check_device(x, "fused_deconv_bn_relu")
     return fused_deconv_bn_relu_packed(x, pack_k3(weight, scale, bias, x.dtype))
 
@@ -341,15 +343,10 @@ def fused_deconv_bn_relu_packed(x, ops: K3Operands) -> torch.Tensor:
     """``fused_deconv_bn_relu`` on operands from ``pack_k3``."""
     name = "fused_deconv_bn_relu"
     _check_ops(x, ops, name)
-    if x.device.type == "cpu":
-        return fused_deconv_bn_relu_plain(x, ops.weight, ops.scale, ops.bias)
     _check_device(x, name)
-    if ops.wpk.dtype != x.dtype:
+    if x.device.type == "cuda" and ops.wpk.dtype != x.dtype:
         raise TypeError("%s: weights packed for %s, x is %s" % (name, ops.wpk.dtype, x.dtype))
-    _check_cuda(x, ops.wpk.shape[1], name, *ops)
-    out = launch(x, ops)
-    fused_deconv_bn_relu.launches += 1
-    return out
+    return torch.ops.mval.fused_deconv_bn_relu(x, *ops)
 
 
 def fused_deconv_bn_relu_int8(x, wq, ws, scale, bias, act_scale) -> torch.Tensor:
@@ -361,8 +358,6 @@ def fused_deconv_bn_relu_int8(x, wq, ws, scale, bias, act_scale) -> torch.Tensor
     _check(x, wq, "fused_deconv_bn_relu_int8")
     if wq.dtype != torch.int8:
         raise TypeError("fused_deconv_bn_relu_int8 takes s8 weights, got %s" % wq.dtype)
-    if x.device.type == "cpu":
-        return fused_deconv_bn_relu_int8_plain(x, wq, ws, scale, bias, act_scale)
     _check_device(x, "fused_deconv_bn_relu_int8")
     return fused_deconv_bn_relu_int8_packed(x, pack_k4(wq, ws, scale, bias), act_scale)
 
@@ -378,13 +373,9 @@ def fused_deconv_bn_relu_int8_packed(x, ops: K4Operands, act_scale) -> torch.Ten
     _check_ops(x, ops, name)
     if ops.wpk.dtype != torch.int8:
         raise TypeError("%s takes s8 weights, got %s" % (name, ops.wpk.dtype))
-    if x.device.type == "cpu":
-        return fused_deconv_bn_relu_int8_plain(x, *ops[:4], act_scale)
     _check_device(x, name)
-    _check_cuda(x, ops.wpk.shape[1], name, *ops)
-    out = launch(x, ops, act_scale)
-    fused_deconv_bn_relu_int8.launches += 1
-    return out
+    act_scale = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
+    return torch.ops.mval.fused_deconv_bn_relu_int8(x, *ops, act_scale)
 
 
 def pack_pose_resnet_head(model, dtype: torch.dtype) -> List[K3Operands]:

@@ -102,7 +102,8 @@ def decode_keypoints_bbox(
     heatmaps: torch.Tensor,
     bbox,
     use_soft_argmax: bool = False,
-) -> torch.Tensor:
+    with_peak: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Decode heatmaps to bbox-relative pixel coordinates through K1.
 
     heatmaps: [..., K, h, w]; bbox: [..., 4] (left, top, right, bottom) ->
@@ -111,7 +112,8 @@ def decode_keypoints_bbox(
     reference's get_pred_coordinates (utils/evaluation.py:33-58) mixes the
     two and so holds only for square boxes; this is the JAX package's
     non-square fix (ops/heatmap.py:105-130).  On a CUDA tensor the decode is
-    K1's launch; on the CPU its plain version."""
+    K1's launch; on the CPU its plain version.  ``with_peak=True`` also
+    returns each map's peak value [..., K] from the same launch."""
     lead = heatmaps.shape[:-2]
     h, w = heatmaps.shape[-2], heatmaps.shape[-1]
     out = decode_kernel.fused_decode(heatmaps.reshape(-1, h * w).to(torch.float32), w, 1.0)
@@ -119,7 +121,10 @@ def decode_keypoints_bbox(
     bbox = torch.as_tensor(bbox, dtype=torch.float32, device=heatmaps.device)
     width = (bbox[..., 2] - bbox[..., 0])[..., None, None]
     height = (bbox[..., 3] - bbox[..., 1])[..., None, None]
-    return coords * torch.cat([width / float(w), height / float(h)], dim=-1)
+    coords = coords * torch.cat([width / float(w), height / float(h)], dim=-1)
+    if with_peak:
+        return coords, out["peak"].reshape(lead)
+    return coords
 
 
 def integral_regression_loss(

@@ -1,12 +1,12 @@
-"""The port, chip_smoke.py and its tools (tools/profile_scoring_torch.py,
-tools/ab_paths_torch.py, tools/dist_agreement_torch.py) import nothing of
-JAX or the JAX package.
+"""The port, chip_smoke.py and its tools (every ``tools/*_torch.py``)
+import nothing of JAX or the JAX package.
 
 An AST scan covers every import statement; a subprocess runs the port's
 CPU path (the engine's steps, a 2-frame pool sweep with a decode worker,
 a 2-step training run with its evaluation, checkpoints and metrics
 records, then a resume from its checkpoint, and the CLI on a 2-frame SAL
-experiment with ``--device cpu`` and RandAugment on) with an import hook
+experiment with ``--device cpu`` and RandAugment on, and a serving
+artifact exported, saved, loaded and called) with an import hook
 that refuses the banned modules, and checks that none of them was
 loaded.  The modules that run under a process group (parallel/, the
 engine's collectives, the strategy's gathers, the rank-0 writes in
@@ -15,6 +15,7 @@ processes of a 2-process CLI run refuse the same modules in
 tests/test_torch_distributed.py."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -28,10 +29,8 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "multi_view_active_learning_tpu"}
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_scoring_torch.py"),
-             os.path.join(REPO, "tools", "ab_paths_torch.py"),
-             os.path.join(REPO, "tools", "dist_agreement_torch.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    files += glob.glob(os.path.join(REPO, "tools", "*_torch.py"))
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -59,7 +58,7 @@ def test_port_has_the_expected_modules():
                  "data/synthetic", "data/native", "data/pipeline", "models/layers",
                  "utils/checkpoint", "utils/evaluation", "utils/metrics_writer",
                  "utils/visualization", "utils/profiling", "workflow", "parallel/__init__",
-                 "data/augmentation"):
+                 "data/augmentation", "serving", "kernels/ops", "data/prep"):
         assert "multi_view_active_learning_tpu_torch/%s.py" % name in rel
 
 
@@ -202,6 +201,14 @@ SCRIPT = textwrap.dedent(
         assert out.sizes == [1, 2], out.sizes
         with open(os.path.join(tmp, "results.json")) as f:
             assert sorted(json.load(f)) == ["1", "2"]
+        # A serving artifact: exported, saved, loaded and called.
+        from multi_view_active_learning_tpu_torch import serving
+        engine.cfg.DATA.INPUT_HEIGHT = engine.cfg.DATA.INPUT_WIDTH = 32  # the frames' size
+        path = serving.save_serving(serving.export_serving(engine, None, 1, 3),
+                                    os.path.join(tmp, "model" + serving.SERVING_SUFFIX))
+        box = np.tile(np.asarray([0, 0, 32, 32], np.float32), (1, 3, 1))
+        served = serving.load_serving(path, device="cpu")(images, box)
+        assert served["keypoints"].shape == (1, 3, 3, 2), served["keypoints"].shape
     finally:
         shutil.rmtree(tmp)
     loaded = {m for m in sys.modules if m.split(".")[0] in BANNED} - already
