@@ -42,8 +42,17 @@ under a NCCL group of one (bit for bit the same), and as two gloo ranks
 sharing the card at batches of 2 a rank (``chip_smoke.py --cli-rank``
 processes), held to the one-process run, plus two NCCL ranks when there
 are two cards; each rank's K1 and K2 launches are the ``kernels`` line's
-``distributed_launches``.  Serving (``phase_serving``, after the EMBEDDING
-path): PoseResNet-50 artifacts (static B=4 and symbolic batch in bf16, the
+``distributed_launches``.  Then view sharding (``phase_view_sharding``):
+that run on a 16-camera tree in one process and as a 1 x 2 data x view
+grid of gloo ranks sharing the card (plus a 2 x 2 NCCL grid with four
+cards), held to the one-process run, K1 on each rank's own views
+(``view_sharding_launches``).  The exact reformulation options
+(``phase_reformulations``, after the EMBEDDING path): the space-to-depth
+stem (float and int8), PhaseDeconv and HRNet's packed convs, each
+reformulated layer against the standard one, the forwards, and their
+score-step ms beside the standard's.  Training runs under cuDNN's
+deterministic algorithms and replays bit for bit from one seed.  Serving
+(``phase_serving``, after the EMBEDDING path): PoseResNet-50 artifacts (static B=4 and symbolic batch in bf16, the
 int8 backbone with static scales, the K3 and K4 heads) and HRNet-W32 at
 B=1 are exported with ``torch.export`` at full width, then loaded and
 called at B=1 and 4 in a fresh process (``chip_smoke.py --serve-load``)
@@ -1263,6 +1272,138 @@ def phase_embedding(dev, ctx):
 # of 64 frames x 31 cameras, PoseResNet-50, B=4, two decode workers, the
 # native decoder.
 SWEEP_FRAMES, SWEEP_WORKERS = 64, 2
+# The exact reformulation options (phase_reformulations).  Each
+# reformulated layer, as the option's forward meets it, against the
+# standard layer on the same input: float32 (TF32 off) within the goldens'
+# rtol of 1e-4 of the output's scale, bf16 within one bf16 step (2^-7) of
+# it.  The whole forward against the standard engine's: float32 within
+# 1e-4 of the scale; bf16 at the bar of the K3 path, another way of
+# computing a bf16 layer (K3_PATH_*): each layer's output rounds to bf16 on
+# its own, and 50 layers carry those roundings on (the space-to-depth
+# stem's forward measured 1.59e-2 of the scale on the card).  The int8
+# stem's s32 products equal.
+REFORM_F32_TOL, REFORM_BF16_TOL = 1e-4, 2.0**-7
+REFORM_OPTIONS = [("SPACE_TO_DEPTH_STEM", "POSE_RESNET", dict(SPACE_TO_DEPTH_STEM=True)),
+                  ("FAST_DECONV", "POSE_RESNET", dict(FAST_DECONV=True)),
+                  ("HRNET_PACKED_MAX_CH", "HRNET", dict(HRNET_PACKED_MAX_CH=32))]
+
+
+def _reformulated_layer_errs(engine, images):
+    """Each reformulated layer of `engine`'s model (the stem on a
+    space-to-depth input, PhaseDeconv, PackedConv2d) against the standard
+    layer on the input it meets in ``engine.forward(images)``: the largest
+    error of each over its output's scale."""
+    import torch
+    import torch.nn.functional as F
+    from multi_view_active_learning_tpu_torch.models.pose_resnet import (
+        PackedConv2d, PhaseDeconv, SpaceToDepthStem)
+
+    errs = []
+
+    def compare(module, inputs, out):
+        x = inputs[0]
+        w = module.weight.to(x.dtype)
+        if isinstance(module, PhaseDeconv):
+            ref = F.conv_transpose2d(x, w, stride=2, padding=1)
+        elif isinstance(module, PackedConv2d):
+            ref = F.conv2d(x, w, padding=1)
+        elif x.shape[1] == 4 * module.in_channels:  # the stem on space-to-depth'd frames
+            n, c4, h, wd = x.shape
+            plain = x.reshape(n, 2, 2, c4 // 4, h, wd).permute(0, 3, 4, 1, 5, 2)
+            ref = F.conv2d(plain.reshape(n, c4 // 4, 2 * h, 2 * wd), w, stride=2, padding=3)
+        else:
+            return
+        errs.append(float((out - ref).abs().max()) / float(ref.abs().max()))
+
+    handles = [m.register_forward_hook(compare) for m in engine.model.modules()
+               if isinstance(m, (SpaceToDepthStem, PackedConv2d, PhaseDeconv))]
+    try:
+        with torch.inference_mode():
+            engine.forward(images)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return errs
+
+
+def phase_reformulations(dev, ctx):
+    """TPU.SPACE_TO_DEPTH_STEM, TPU.FAST_DECONV (PoseResNet-50) and
+    TPU.HRNET_PACKED_MAX_CH 32 (HRNet-W32) at bench width, the main path's
+    seeded weights (HRNet's of the HRNet path), in bf16 and float32: each
+    option's reformulated layers and its forward against the standard
+    ones on the main path's frames (REFORM_*), and its TRIANGULATION
+    score-step ms beside the standard one's,
+    timed in turns (standard, option, option, standard).  Then the int8
+    stem (the default configuration, static scales) on the space-to-depth
+    input: its s32 products equal the plain stem's, and the heatmaps are
+    printed against the plain int8 path's."""
+    import torch
+    from multi_view_active_learning_tpu_torch.models import quantize
+
+    t_phase = time.perf_counter()
+    images, proj, valid, pairs, gt = (ctx[k] for k in ("images", "proj", "valid", "pairs", "gt"))
+    weights = {"POSE_RESNET": ctx["state_dict"], "HRNET": hrnet_state_dict()}
+    rows = []
+    for option, model, tpu in REFORM_OPTIONS:
+        for dtype in ("bfloat16", "float32"):
+            std = _engine(dtype, dev, weights[model], model)
+            opt = _engine(dtype, dev, weights[model], model, **tpu)
+            layer_errs = _reformulated_layer_errs(opt, images)
+            tol = REFORM_F32_TOL if dtype == "float32" else REFORM_BF16_TOL
+            check(layer_errs and max(layer_errs) <= tol,
+                  "%s %s: %d reformulated layers, off the standard layer by up to %s of the "
+                  "scale (bar %g)" % (option, dtype, len(layer_errs), max(layer_errs or [0]), tol))
+            cos, err, agree = _agreement(opt.forward(images), std.forward(images))
+            if dtype == "float32":
+                check(err <= REFORM_F32_TOL, "%s float32: forward off the standard one by %g of "
+                      "the scale" % (option, err))
+            else:
+                check(cos > K3_PATH_COS and err <= K3_PATH_MAX_ERR,
+                      "%s bf16: forward against the standard one: cosine %g, max err %g of the "
+                      "scale" % (option, cos, err))
+            ms = {"standard": [], "option": []}
+            for which in ("standard", "option", "option", "standard"):
+                engine = std if which == "standard" else opt
+                step_ms, out = _timed_steps(
+                    lambda: engine.score_step(images, proj, valid, pairs, gt), 2, 10)
+                _check_scores(out, "%s %s %s" % (option, dtype, which))
+                ms[which].append(step_ms)
+            rows.append(dict(option=option, model=model, dtype=dtype, layers=len(layer_errs),
+                             layer_max_err_of_scale=max(layer_errs), layer_tol=tol,
+                             forward_err_of_scale=err, forward_cosine=cos,
+                             forward_argmax_agreement=agree, standard_ms=ms["standard"],
+                             option_ms=ms["option"]))
+            del std, opt
+    # The int8 stem on space-to-depth'd frames, static scales.
+    std = _engine("bfloat16", dev, weights["POSE_RESNET"], INT8_SCORING=True)
+    opt = _engine("bfloat16", dev, weights["POSE_RESNET"], INT8_SCORING=True,
+                  SPACE_TO_DEPTH_STEM=True)
+    check(std.use_int8 and opt.use_int8, "the int8 engines score float")
+    scales = std.int8_calibrate(images)
+    with torch.inference_mode():
+        flat, flat_s2d = std._flatten_normalize(images), opt._flatten_normalize(images)
+        sx = scales["stem"]
+        acc = quantize.stem_s32(std._int8_weights, quantize._quant_act(flat, sx))
+        acc_s2d = quantize.stem_s32(opt._int8_weights, quantize._quant_act(flat_s2d, sx))
+    check(acc.dtype == torch.int32 and torch.equal(acc, acc_s2d),
+          "int8 stem: the s32 products differ on the space-to-depth input")
+    cos, int8_err, agree = _agreement(opt.forward(images, scales), std.forward(images, scales))
+    ms = {"standard": [], "option": []}
+    for which in ("standard", "option", "option", "standard"):
+        engine = std if which == "standard" else opt
+        step_ms, out = _timed_steps(
+            lambda: engine.score_step(images, proj, valid, pairs, gt, int8_scales=scales), 2, 10)
+        _check_scores(out, "int8 s2d %s" % which)
+        ms[which].append(step_ms)
+    rows.append(dict(option="SPACE_TO_DEPTH_STEM", model="POSE_RESNET", dtype="int8",
+                     stem_s32_equal=True, forward_err_of_scale=int8_err, forward_cosine=cos,
+                     forward_argmax_agreement=agree, standard_ms=ms["standard"],
+                     option_ms=ms["option"]))
+    emit("reformulations", batch=BATCH, views=VIEWS, img=IMG, joints=JOINTS, rows=rows,
+         tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+         seconds=time.perf_counter() - t_phase)
+
+
 SAL_GOLDENS = os.path.join(REPO, "tests", "fixtures", "sal_dict_goldens.json")
 # Frames selected and pseudo-labeled a step: on the golden tree, and at
 # full width.
@@ -1874,20 +2015,26 @@ def phase_train(dev, tree, tmp):
     weights within RESUME_PARAM_TOL; after training the strategy's engine
     scores a batch as a new Engine loaded with the trained weights does
     (and not as the initial weights do); TPU.REMAT gives one step's loss and
-    BN statistics.  (c) step ms, frames/s and crops/s on batches already on
-    the card, eval and checkpoint-save seconds, peak memory with and
-    without REMAT."""
+    BN statistics.  The run is under cuDNN's deterministic algorithms, as
+    the CLI trains (``device.use_deterministic_algorithms``), and a second
+    run from the same seed must end in the same state bit for bit (ROADMAP
+    Queue C9).  (c) step ms, frames/s and crops/s on batches already on the
+    card, eval and checkpoint-save seconds, peak memory with and without
+    REMAT; the step with and without the deterministic flags, in turns; the
+    ops of a step that ``torch.use_deterministic_algorithms`` would flag."""
     import warnings
 
     import torch
     from multi_view_active_learning_tpu_torch import kernels
     from multi_view_active_learning_tpu_torch.data import build_dataset, pipeline
+    from multi_view_active_learning_tpu_torch.device import use_deterministic_algorithms
     from multi_view_active_learning_tpu_torch.engine import Engine
     from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
     from multi_view_active_learning_tpu_torch.utils import checkpoint as ckpt
 
     t_phase = time.perf_counter()
     parity = _train_parity(dev)
+    use_deterministic_algorithms(dev)
     log_dir = os.path.join(tmp, "train")
     cfg = _train_cfg(tree, log_dir, "full")
     strategy = ActiveLearningStrategy(cfg)  # the card: no device given
@@ -1930,6 +2077,18 @@ def phase_train(dev, tree, tmp):
     mkpe = [r["value"] for r in records if r["tag"] == "3D MKPE"]
     check(len(mkpe) == TRAIN_STEPS // TRAIN_LOG_EVERY and all(np.isfinite(mkpe)),
           "3D MKPE records %s" % mkpe)
+
+    # The same run again from the same seed: the same state, bit for bit.
+    acfg = _train_cfg(tree, log_dir, "again")
+    again = ActiveLearningStrategy(acfg)
+    replay = again.run_fully_supervised_training(
+        again.new_state(), build_dataset(acfg, "train"), build_dataset(acfg, "val"))
+    replay_diff = {k: float((replay.flat[k].double() - state.flat[k].double()).abs().max())
+                   for k in state.flat}
+    check(all(torch.equal(replay.flat[k], state.flat[k]) for k in state.flat)
+          and int(replay.step) == int(state.step) and int(replay.count) == int(state.count),
+          "two runs from one seed differ: %s" % replay_diff)
+    del again, replay
 
     # Resumed from CKPT-E10: the same frames in the same order after it.
     rcfg = _train_cfg(tree, log_dir, "resumed",
@@ -1994,6 +2153,23 @@ def phase_train(dev, tree, tmp):
     torch.cuda.reset_peak_memory_stats()
     step_ms, _ = _timed_steps(step, 2, 10)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # The deterministic flags' cost, in turns (on, off, off, on).
+    flag_ms = {True: [], False: []}
+    for on in (True, False, False, True):
+        torch.backends.cudnn.deterministic = on
+        flag_ms[on].append(_timed_steps(step, 2, 10)[0])
+    use_deterministic_algorithms(dev)
+    # The ops of a step that have no deterministic CUDA implementation.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondeterministic = sorted({str(w.message).split(" does not have")[0] for w in caught
+                               if "deterministic" in str(w.message)})
     rcfg = cfg.clone()
     rcfg.TPU.REMAT = True
     remat = Engine(rcfg)
@@ -2034,6 +2210,8 @@ def phase_train(dev, tree, tmp):
          mkpe=mkpe, checkpoints=names, launches=launches, synchronizing_calls=len(syncs),
          resume_param_max_err=resume_err, resume_param_tol=RESUME_PARAM_TOL,
          stale_rel_err=stale_err, initial_weights_rel_gap=init_gap,
+         replay_bit_equal=True, deterministic_step_ms=flag_ms[True],
+         default_step_ms=flag_ms[False], nondeterministic_ops=nondeterministic,
          step_ms=step_ms, frames_per_s=TRAIN_BATCH / step_ms * 1e3,
          crops_per_s=TRAIN_BATCH * VIEWS / step_ms * 1e3, peak_gib=peak_gib,
          remat_step_ms=remat_ms, remat_peak_gib=remat_peak_gib,
@@ -2469,22 +2647,23 @@ DIST_DTYPE, DIST_LR = "float32", 1e-9
 DIST_LOSS_RTOL, DIST_MKPE_ATOL, DIST_PCK_ATOL = 1e-4, 1e-2, 1e-2
 
 
-def _dist_yaml(tmp, name, tree, batch, dtype, lr):
+def _dist_yaml(tmp, name, tree, batch, dtype, lr, view_axis=1):
     return _workflow_yaml(
         tmp, name, tree, "experiments/sample-config.yaml", POSE_ESTIMATOR__TYPE="POSE_RESNET",
         POSE_ESTIMATOR__NUM_LAYERS=DEPTH, AL__STRATEGY="CORESET", TPU__INT8_SCORING=False,
         TPU__COMPUTE_DTYPE=dtype, TRAIN__BATCH_SIZE=batch, AL__INFERENCE__BATCH_SIZE=batch,
-        TRAIN__OPTIM__LR=lr, **WORKFLOW_CUTS)
+        TRAIN__OPTIM__LR=lr, TPU__VIEW_AXIS=view_axis, **WORKFLOW_CUTS)
 
 
 def cli_rank(spec_path, rank):
     """One process of a `phase_distributed` run (``chip_smoke.py --cli-rank
     SPEC RANK``, started by `_run_ranks` with torchrun's environment): joins
     the group the spec names, runs the CLI on the card with the launch
-    counters set to 0 just before it, and reports its launches, loader
-    batches, train-step ms, per-stage seconds, the files it opened for
-    writing under the run's LOG_DIR, each AL iteration's trained state (what
-    that iteration's CKPT-FINAL holds) and the CORESET step's features."""
+    counters set to 0 just before it, and reports its launches (and the rows
+    of each K1 launch), loader batches, train-step ms, per-stage seconds, the
+    files it opened for writing under the run's LOG_DIR, each AL iteration's
+    trained state (what that iteration's CKPT-FINAL holds) and the CORESET
+    step's features."""
     import builtins
 
     import torch
@@ -2498,6 +2677,7 @@ def cli_rank(spec_path, rank):
     torch.backends.cudnn.deterministic = True
     from multi_view_active_learning_tpu_torch import kernels, parallel
     from multi_view_active_learning_tpu_torch import strategy as strategy_mod
+    from multi_view_active_learning_tpu_torch.kernels import decode
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -2518,16 +2698,24 @@ def cli_rank(spec_path, rank):
         states.append({k: v.detach().cpu().clone() for k, v in state.flat.items()})
         return state
 
+    k1_rows, launch = [], decode.launch
+
+    def counting_launch(heatmaps_flat, *args):
+        k1_rows.append(int(heatmaps_flat.shape[0]))
+        return launch(heatmaps_flat, *args)
+
     spy = _WorkflowSpy(time_steps=True)
     coresets = _CoreSetSpy(strategy_mod.coreset_ops)
     strategy_mod.ActiveLearningStrategy._train = keep_state
     strategy_mod.coreset_ops = coresets
     builtins.open = recording_open
+    decode.launch = counting_launch
     try:
         kernels.reset_launch_counts()
         out, seconds = _run_cli(spec["config"])
         launches = kernels.launch_counts()
     finally:
+        decode.launch = launch
         builtins.open = real_open
         strategy_mod.coreset_ops = coresets.ops
         strategy_mod.ActiveLearningStrategy._train = train
@@ -2537,6 +2725,7 @@ def cli_rank(spec_path, rank):
                 "keys": list(cs.sal_keys)}, os.path.join(spec["report_dir"], "rank%d.pt" % rank))
     with open(os.path.join(spec["report_dir"], "rank%d.json" % rank), "w") as f:
         json.dump(dict(rank=rank, world=parallel.process_count(), card=torch.cuda.current_device(),
+                       mesh=list(parallel.current_mesh()), k1_rows=sorted(set(k1_rows)),
                        launches=launches, loader_batches=spy.batches, train_steps=spy.train_steps,
                        step_ms=spy.step_ms, seconds=dict(sorted(spy.seconds.items())), run_s=seconds,
                        writes=sorted({w for w in writes if w.startswith(spec["log_dir"])}),
@@ -2555,13 +2744,14 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _run_ranks(tmp, name, tree, world, batch, dtype, lr, backend, cards):
-    """The `world` processes of one run, started together with torchrun's
-    environment (none without a backend), on `cards`; any failure fails the
-    phase.  Returns {"reports", "saved" (per rank), "log_dir", "wall_s"}."""
+def _run_ranks(tmp, name, tree, world, batch, dtype, lr, backend, cards, view_axis=1):
+    """The `world` processes of one run (a mesh of world / view_axis data
+    rows), started together with torchrun's environment (none without a
+    backend), on `cards`; any failure fails the phase.  Returns {"reports",
+    "saved" (per rank), "log_dir", "wall_s"}."""
     import torch
 
-    path, _, log_dir = _dist_yaml(tmp, name, tree, batch, dtype, lr)
+    path, _, log_dir = _dist_yaml(tmp, name, tree, batch, dtype, lr, view_axis)
     report_dir = os.path.join(tmp, "reports", name)
     os.makedirs(report_dir, exist_ok=True)
     spec = os.path.join(report_dir, "spec.json")
@@ -2623,14 +2813,18 @@ def _state_diff(a, b):
                for x, y in zip(a, b) for k in x)
 
 
-def _check_ranks(run, name):
+def _check_ranks(run, name, k1_rows=None):
     """Each rank launched K1 once a scoring or evaluation batch of its own
-    (its loaders' batches less its train steps) and K2 once (iteration 1's
+    (its loaders' batches less its train steps; with `k1_rows`, every launch
+    on that many heatmap rows, its own views') and K2 once (iteration 1's
     CORESET step), ran every train step, used one stamp, and holds rank 0's
     trained states bit for bit; rank 0 wrote the checkpoints and logs, the
     others RESULTS only (every rank writes it, as the JAX package does)."""
     reports, saved = run["reports"], run["saved"]
     for r in reports:
+        if k1_rows is not None:
+            check(r["k1_rows"] == [k1_rows], "%s rank %d: K1 on %s rows, not %d"
+                  % (name, r["rank"], r["k1_rows"], k1_rows))
         k1 = r["loader_batches"] - r["train_steps"]
         check(r["launches"]["fused_decode"] == k1, "%s rank %d: K1 %d for %d batches"
               % (name, r["rank"], r["launches"]["fused_decode"], k1))
@@ -2704,6 +2898,27 @@ def _run_agreement(ref, got):
                  for size, r in ref_res.items()})
 
 
+def _check_agreement(name, a):
+    """The DIST_* bars of a ranks' run against the one-process run
+    (`_run_agreement`'s `a`)."""
+    check(a["iteration0_byte_equal"], "%s: SAMPLED-GUID-ITER-0 differs" % name)
+    check(a["sal_dict_worst_share"] <= 1.0 and not a["inlier_counts_differ"],
+          "%s: sal_dict off by %g of its tolerance, %d inlier counts differ"
+          % (name, a["sal_dict_worst_share"], a["inlier_counts_differ"]))
+    check(a["covered_picks_equal"] and a["picks_covered"] >= a["picks"] // 2,
+          "%s: %d of %d picks decided by a gap above 4 x %g, equal: %s"
+          % (name, a["picks_covered"], a["picks"], a["feature_row_err"],
+             a["covered_picks_equal"]))
+    check(a["pseudo_labels_equal"], "%s: SAL-GUID-ITER-1 differs" % name)
+    got, ref = a["train_losses"]
+    check(len(got) == len(ref) == 4 and np.allclose(got, ref, rtol=DIST_LOSS_RTOL, atol=0),
+          "%s: log-point losses %s against %s" % (name, got, ref))
+    for size, r in a["results"].items():
+        check(abs(r["mkpe"][0] - r["mkpe"][1]) <= DIST_MKPE_ATOL
+              and r["pck_max_diff"] <= DIST_PCK_ATOL and r["pckh_max_diff"] <= DIST_PCK_ATOL,
+              "%s: RESULTS[%s] %s" % (name, size, r))
+
+
 def _timing(run):
     """Each rank's median train-step ms and iteration-1 sweep seconds."""
     return [dict(step_ms=statistics.median(r["step_ms"]),
@@ -2754,28 +2969,85 @@ def phase_distributed(tree, tmp):
     check(not same["logs_differ"] and same["results_equal"] and same["state_diff"] == 0.0,
           "the NCCL world of one differs from the run without a group: %s" % same)
     for name, a in agreement.items():
-        if name == "nccl1":
-            continue
-        check(a["iteration0_byte_equal"], "%s: SAMPLED-GUID-ITER-0 differs" % name)
-        check(a["sal_dict_worst_share"] <= 1.0 and not a["inlier_counts_differ"],
-              "%s: sal_dict off by %g of its tolerance, %d inlier counts differ"
-              % (name, a["sal_dict_worst_share"], a["inlier_counts_differ"]))
-        check(a["covered_picks_equal"] and a["picks_covered"] >= a["picks"] // 2,
-              "%s: %d of %d picks decided by a gap above 4 x %g, equal: %s"
-              % (name, a["picks_covered"], a["picks"], a["feature_row_err"],
-                 a["covered_picks_equal"]))
-        check(a["pseudo_labels_equal"], "%s: SAL-GUID-ITER-1 differs" % name)
-        got, ref = a["train_losses"]
-        check(len(got) == len(ref) == 4 and np.allclose(got, ref, rtol=DIST_LOSS_RTOL, atol=0),
-              "%s: log-point losses %s against %s" % (name, got, ref))
-        for size, r in a["results"].items():
-            check(abs(r["mkpe"][0] - r["mkpe"][1]) <= DIST_MKPE_ATOL
-                  and r["pck_max_diff"] <= DIST_PCK_ATOL and r["pckh_max_diff"] <= DIST_PCK_ATOL,
-                  "%s: RESULTS[%s] %s" % (name, size, r))
+        if name != "nccl1":
+            _check_agreement(name, a)
     timing = {name: _timing(run) for name, run in runs.items()}
     emit("distributed", dtype=DIST_DTYPE, lr=DIST_LR, world=DIST_WORLD, batch_a_rank=DIST_BATCH,
          cards=torch.cuda.device_count(), runs=sorted(runs), agreement=agreement, timing=timing,
          wall_s={name: run["wall_s"] for name, run in runs.items()},
+         seconds=time.perf_counter() - t_phase)
+    return {kernel: {name: [r["launches"][kernel] for r in run["reports"]]
+                     for name, run in runs.items()}
+            for kernel in ("fused_decode", "min_distance_to_centers")}
+
+
+# View sharding (phase_view_sharding): run (c) of phase_distributed on a
+# synthetic Panoptic-schema tree of 16 cameras (InterHand2.6M's
+# NUM_VIEW_PER_FRAME, which 2 divides; 31 does not, and its views would be
+# replicated on the view axis), its other sizes the pool sweep's (64 + 8
+# frames, 256^2, 19 joints): "one" (one process at batches of 4), "grid1x2"
+# (a 1 x 2 data x view mesh of two gloo ranks sharing card 0, batches of 4
+# a data row: the same global batches, each rank 8 views of every frame)
+# and, with four cards, "grid2x2" (2 x 2 NCCL ranks, a card each, batches
+# of 2 a data row), held to "one" at phase_distributed's bars.
+VS_CAMERAS, VS_VIEW_AXIS, VS_BATCH = 16, 2, 4
+
+
+def view_sharding_runs(tree, tmp, dtype=DIST_DTYPE, lr=DIST_LR):
+    """The phase's runs, each rank checked by `_check_ranks` (K1 on its own
+    views' rows, B x 16 / 2 x 19 a launch), and their agreement with the
+    one-process run: (runs, agreement)."""
+    import torch
+
+    runs = {"one": _run_ranks(tmp, "one", tree, 1, VS_BATCH, dtype, lr, None, [0]),
+            "grid1x2": _run_ranks(tmp, "grid1x2", tree, VS_VIEW_AXIS, VS_BATCH, dtype, lr, "gloo",
+                                  [0] * VS_VIEW_AXIS, view_axis=VS_VIEW_AXIS)}
+    if torch.cuda.device_count() >= 4:
+        runs["grid2x2"] = _run_ranks(tmp, "grid2x2", tree, 4, VS_BATCH // 2, dtype, lr, "nccl",
+                                     [0, 1, 2, 3], view_axis=VS_VIEW_AXIS)
+    _check_ranks(runs["one"], "one", k1_rows=VS_BATCH * VS_CAMERAS * JOINTS)
+    _check_ranks(runs["grid1x2"], "grid1x2",
+                 k1_rows=VS_BATCH * VS_CAMERAS // VS_VIEW_AXIS * JOINTS)
+    if "grid2x2" in runs:
+        _check_ranks(runs["grid2x2"], "grid2x2",
+                     k1_rows=VS_BATCH // 2 * VS_CAMERAS // VS_VIEW_AXIS * JOINTS)
+    for name, run in runs.items():
+        meshes = {tuple(r["mesh"]) for r in run["reports"]}
+        want = {"one": (1, 1), "grid1x2": (1, 2), "grid2x2": (2, 2)}[name]
+        check(meshes == {want}, "%s: meshes %s" % (name, meshes))
+    agreement = {name: _run_agreement(runs["one"], run) for name, run in runs.items()
+                 if name != "one"}
+    return runs, agreement
+
+
+def phase_view_sharding(tmp):
+    """View sharding (TPU.VIEW_AXIS 2) through the CLI (`view_sharding_runs`,
+    DIST_DTYPE at DIST_LR, cuDNN deterministic in each rank): every grid
+    passes `_check_ranks` and phase_distributed's bars against the
+    one-process run.  Prints each rank's median train-step ms and
+    iteration-1 sweep seconds and the phase's seconds; ranks that share
+    one card share its SMs, so they give no scaling figure.  Returns K1's
+    and K2's launches by run."""
+    import torch
+    from multi_view_active_learning_tpu_torch.data.synthetic import generate_panoptic_tree
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tree = generate_panoptic_tree(os.path.join(tmp, "views16"), num_train_frames=SWEEP_FRAMES,
+                                  num_val_frames=TRAIN_VAL_FRAMES, num_joints=JOINTS,
+                                  num_cameras=VS_CAMERAS)
+    tree_s = time.perf_counter() - t0
+    runs, agreement = view_sharding_runs(tree, os.path.join(tmp, "view_sharding"))
+    for name, a in agreement.items():
+        _check_agreement(name, a)
+    emit("view_sharding", dtype=DIST_DTYPE, lr=DIST_LR, cameras=VS_CAMERAS,
+         view_axis=VS_VIEW_AXIS, batch_a_data_row={name: VS_BATCH // (2 if name == "grid2x2" else 1)
+                                                  for name in runs},
+         cards=torch.cuda.device_count(), runs=sorted(runs), agreement=agreement,
+         timing={name: _timing(run) for name, run in runs.items()},
+         k1_rows={name: [r["k1_rows"] for r in run["reports"]] for name, run in runs.items()},
+         scaling="none: grid1x2's two ranks share card 0's SMs",
+         wall_s={name: run["wall_s"] for name, run in runs.items()}, tree_s=tree_s,
          seconds=time.perf_counter() - t_phase)
     return {kernel: {name: [r["launches"][kernel] for r in run["reports"]]
                      for name, run in runs.items()}
@@ -3095,6 +3367,7 @@ def run_phases():
     path_launches = phase_paths(dev, ctx)
     phase_hrnet_path(dev, ctx)
     phase_embedding(dev, ctx)
+    phase_reformulations(dev, ctx)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         serving_launches = phase_serving(dev, ctx, tmp)
@@ -3102,6 +3375,7 @@ def run_phases():
         train_launches = phase_train(dev, tree, tmp)
         workflow_launches = phase_workflow(dev, tree, tmp)
         distributed_launches = phase_distributed(tree, tmp)
+        view_launches = phase_view_sharding(tmp)
         phase_learning(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3121,6 +3395,9 @@ def run_phases():
     # K1 and K2 on each rank of phase_distributed's runs (run -> per rank).
     rows[0]["distributed_launches"] = distributed_launches["fused_decode"]
     rows[1]["distributed_launches"] = distributed_launches["min_distance_to_centers"]
+    # K1 and K2 on each rank of phase_view_sharding's runs (K1 on the rank's views).
+    rows[0]["view_sharding_launches"] = view_launches["fused_decode"]
+    rows[1]["view_sharding_launches"] = view_launches["min_distance_to_centers"]
     # Each kernel's launches in one serve call of the artifact that drives it.
     for row in rows:
         row["serving_launches"] = serving_launches[row["name"]]

@@ -229,19 +229,22 @@ def apply_ops(draws: Dict[str, np.ndarray], images: torch.Tensor,
 def rand_augment(rng_key: np.ndarray, images: torch.Tensor, heatmaps: torch.Tensor, num_aug: int,
                  magnitude: int, use_rotation: bool = True, use_image_aug: bool = True,
                  const_magnitude: bool = True, total_rows: Optional[int] = None,
-                 row_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                 rows: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """`num_aug` random ops a sample (JAX data/augmentation.py:176-235;
     reference: dataset/augmentation.py:99-116) on float32 images
     ``[N, H, W, 3]`` in [0, 255] and heatmaps ``[N, K, h, w]``, from the
     threefry key `rng_key` (utils/prng.py).  The draws are keyed by row:
-    with `total_rows`, the N samples are rows ``row_offset ..
-    row_offset + N - 1`` of a batch of `total_rows` (a rank's share of the
-    global batch), and take those rows' draws."""
+    with `total_rows`, the N samples are the rows `rows` (N indices) of a
+    batch of `total_rows` (a rank's crops of the global batch), and take
+    those rows' draws."""
     if num_aug == 0 or not (use_rotation or use_image_aug):
         return images, heatmaps
     n = images.shape[0]
     draws = draw_ops(rng_key, n if total_rows is None else total_rows, num_aug, magnitude,
                      use_rotation, use_image_aug, const_magnitude)
     if total_rows is not None:
-        draws = {name: value[row_offset:row_offset + n] for name, value in draws.items()}
+        rows = np.asarray(rows)
+        if rows.shape != (n,):
+            raise ValueError("rows holds %s indices for %d samples" % (rows.shape, n))
+        draws = {name: value[rows] for name, value in draws.items()}
     return apply_ops(draws, images, heatmaps)

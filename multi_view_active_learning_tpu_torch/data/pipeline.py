@@ -18,7 +18,10 @@ Split of labor against the reference's all-on-CPU prepare_single_view
 
 Batches are fixed-shape: the last partial batch is padded and flagged in
 ``frame_valid``.  Worker processes run host code only (numpy, PIL, the
-native decoder) and never touch CUDA.
+native decoder) and never touch CUDA.  Under view sharding a loader's
+``view_shard`` = (view axis, view column) makes it decode only its column's
+block of each frame's views when the axis divides their count; every
+other array still holds every view.
 """
 
 from __future__ import annotations
@@ -32,11 +35,12 @@ import threading
 from collections import OrderedDict, deque
 from concurrent.futures import ProcessPoolExecutor
 from queue import Full, Queue
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 from PIL import Image
 
+from .. import parallel
 from ..ops import geometry
 from ..utils import storage
 
@@ -227,12 +231,21 @@ def native_decoder_available() -> bool:
     return native.available()
 
 
-def _frame_view_keys(frame: dict, data_cfg) -> List[tuple]:
+def _kept_views(num_views: int, view_shard: Tuple[int, int]) -> range:
+    """The views whose images a loader with `view_shard` = (view axis, view
+    column) decodes of a frame of `num_views` (``parallel.view_block``)."""
+    return range(num_views)[parallel.view_block(num_views, *view_shard)]
+
+
+def _frame_view_keys(frame: dict, data_cfg, view_shard: Tuple[int, int] = (1, 0)) -> List[tuple]:
     """The VIEW_CACHE keys prepare_views_host uses for each view of
-    `frame` (the same bbox math), so the loader can find a frame whose
-    views are all cached in this process and skip the worker round trip."""
+    `frame` it decodes (the same bbox math), so the loader can find a frame
+    whose views are all cached in this process and skip the worker round
+    trip."""
     keys = []
-    for view in frame["views"].values():
+    views = list(frame["views"].values())
+    for i in _kept_views(len(views), view_shard):
+        view = views[i]
         if data_cfg.DEVICE_CROP:
             keys.append((view["path"], "full"))
             continue
@@ -250,8 +263,10 @@ def _effective_cache_size(data_cfg) -> int:
     return size
 
 
-def prepare_views_host(frame: dict, data_cfg, gt_stride: int) -> Dict[str, np.ndarray]:
-    """Prepare every view of one frame on the host.
+def prepare_views_host(frame: dict, data_cfg, gt_stride: int,
+                       view_shard: Tuple[int, int] = (1, 0)) -> Dict[str, np.ndarray]:
+    """Prepare every view of one frame on the host; with `view_shard` the
+    images are those of ``_kept_views`` only, the camera data every view's.
 
     Reference: dataset/dataset.py:112-220 (prepare_frame +
     prepare_single_view) without normalization, heatmaps and augmentation,
@@ -271,10 +286,13 @@ def prepare_views_host(frame: dict, data_cfg, gt_stride: int) -> Dict[str, np.nd
         use_native = native.available()
 
     images, projs, kps, kps_after_crop, sq_boxes, pvjv = [], [], [], [], [], []
-    for camera_name, view in frame["views"].items():
+    kept = _kept_views(len(frame["views"]), view_shard)
+    for index, (camera_name, view) in enumerate(frame["views"].items()):
         bbox = geometry.get_square_bbox(tuple(view["box"]))
         bbox = geometry.scale_bbox(bbox, data_cfg.SCALE_BBOX)
-        if device_crop:
+        if index not in kept:
+            image = None
+        elif device_crop:
             # Full frame only; the crop + resize runs on the device.
             cache_key = (view["path"], "full")
             cache_size = _effective_cache_size(data_cfg)
@@ -319,13 +337,14 @@ def prepare_views_host(frame: dict, data_cfg, gt_stride: int) -> Dict[str, np.nd
         cam.update_after_resize(crop_shape, data_cfg.INPUT_WIDTH, data_cfg.INPUT_HEIGHT)
         projs.append(cam.projection.astype(np.float32))
         kps.append(cam.project(kp3d).astype(np.float32))
-        images.append(image)
+        if image is not None:
+            images.append(image)
         sq_boxes.append(np.asarray(bbox, dtype=np.float32))
         pvjv.append(np.asarray(view["per_view_joint_valid"], dtype=bool))
 
     return {
-        # [V, H, W, 3] uint8 crops; under DATA.DEVICE_CROP full frames (one
-        # frame size per dataset).
+        # [V, H, W, 3] uint8 crops (the kept views); under DATA.DEVICE_CROP
+        # full frames (one frame size per dataset).
         "images": np.stack(images),
         "proj_matrices": np.stack(projs),  # [V, 3, 4]
         "2d_keypoints": np.stack(kps),  # [V, K, 2] after the resize
@@ -347,13 +366,16 @@ class FrameLoader:
     With `num_shards > 1` each process loads its `shard_index`-strided
     subset, the DistributedSampler equivalent (reference:
     strategy.py:747-760), and every shard emits the longest shard's batch
-    count.  A background thread prefetches `prefetch` batches, so host
-    decode overlaps device compute; `num_workers` decode processes share
-    the work of a sweep.
+    count (shards are a mesh's data rows).  `view_shard` (view axis, view
+    column) selects the views whose images are decoded (``_kept_views``).  A
+    background thread prefetches `prefetch` batches, so host decode
+    overlaps device compute; `num_workers` decode processes share the work
+    of a sweep.
     """
 
     def __init__(self, pool, data_cfg, gt_stride: int, batch_size: int, num_shards: int = 1,
-                 shard_index: int = 0, prefetch: int = 2, num_workers: int = 0):
+                 shard_index: int = 0, prefetch: int = 2, num_workers: int = 0,
+                 view_shard: Tuple[int, int] = (1, 0)):
         self.pool = pool
         self.data_cfg = data_cfg
         self.gt_stride = gt_stride
@@ -362,6 +384,7 @@ class FrameLoader:
         self.shard_index = shard_index
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.view_shard = tuple(view_shard)
         self._executor: ProcessPoolExecutor | None = None
         self._shard_guids_cache = None
 
@@ -438,7 +461,7 @@ class FrameLoader:
         ex = self._ensure_executor()
         if ex is None:
             for f in frames:
-                yield prepare_views_host(f, self.data_cfg, self.gt_stride)
+                yield prepare_views_host(f, self.data_cfg, self.gt_stride, self.view_shard)
             return
         cache_size = _effective_cache_size(self.data_cfg)
         window = max(2 * self.num_workers, self.batch_size)
@@ -447,10 +470,11 @@ class FrameLoader:
         def submit(f):
             keys = None
             if cache_size > 0:
-                keys = _frame_view_keys(f, self.data_cfg)
+                keys = _frame_view_keys(f, self.data_cfg, self.view_shard)
                 if all(VIEW_CACHE.get(k) is not None for k in keys):
-                    return prepare_views_host(f, self.data_cfg, self.gt_stride)
-            return ex.submit(prepare_views_host, f, self.data_cfg, self.gt_stride), keys
+                    return prepare_views_host(f, self.data_cfg, self.gt_stride, self.view_shard)
+            return ex.submit(prepare_views_host, f, self.data_cfg, self.gt_stride,
+                             self.view_shard), keys
 
         def resolve(item):
             if isinstance(item, dict):
@@ -505,7 +529,8 @@ class FrameLoader:
             elif pad_frame is None:
                 # A shard shorter than the longest with no frames at all:
                 # any pool frame, prepared once, pads it (all rows invalid).
-                pad_frame = prepare_views_host(self.pool.data[0], self.data_cfg, self.gt_stride)
+                pad_frame = prepare_views_host(self.pool.data[0], self.data_cfg, self.gt_stride,
+                                               self.view_shard)
             while len(prepared) < B:  # pad to the fixed shape
                 prepared.append(pad_frame)
             batch = {key: np.stack([p[key] for p in prepared]) for key in prepared[0]
@@ -561,7 +586,7 @@ class FrameLoader:
 def device_prepare(images_u8, keypoints_2d, sigma, rng_key=None, stride: int = 4,
                    train: bool = False, num_aug: int = 0, magnitude: int = 0,
                    use_rotation: bool = True, use_image_aug: bool = True,
-                   const_magnitude: bool = True):
+                   const_magnitude: bool = True, num_views=None):
     """Finish a training (or eval) batch on the device (JAX
     data/pipeline.py:395-440): GT Gaussian heatmaps at the keypoints over
     the stride with each frame's sigma, RandAugment on images and heatmaps
@@ -571,8 +596,11 @@ def device_prepare(images_u8, keypoints_2d, sigma, rng_key=None, stride: int = 4
     images_u8: uint8 [B, V, H, W, 3]; keypoints_2d: [B, V, K, 2] after the
     resize; sigma: [B].  Returns (images float32 [B, V, H, W, 3],
     gt_heatmaps float32 [B, V, K, H / stride, W / stride]).  Under a
-    process group the batch is this rank's rows of the global batch, and
-    RandAugment applies those rows' draws of the global batch's."""
+    process group the batch is this rank's crops of the global
+    ``[B * data, num_views]`` batch (its data row's frames and, under view
+    sharding, its views, ``parallel.view_slice(num_views)``; `num_views`
+    defaults to the images'), and RandAugment applies those crops' draws of
+    the global batch's."""
     import torch
 
     from ..ops import heatmap
@@ -584,16 +612,22 @@ def device_prepare(images_u8, keypoints_2d, sigma, rng_key=None, stride: int = 4
         sigma.to(torch.float32)[:, None, None, None, None])  # [B, V, K, h, w]
     images = images_u8.to(torch.float32)
     if train and num_aug > 0:
-        from .. import parallel
         from . import augmentation
 
         if rng_key is None:
             raise ValueError("DATA.NUM_AUG > 0 needs an rng_key for the training batch")
         K = heat.shape[2]
+        total_views = V if num_views is None else int(num_views)
+        views = np.arange(total_views)[parallel.view_slice(total_views)]
+        if len(views) != V:
+            raise ValueError("images hold %d views; this rank holds %d of %d"
+                             % (V, len(views), total_views))
+        frames = parallel.data_index() * B + np.arange(B)
         images, heat = augmentation.rand_augment(
             rng_key, images.reshape(B * V, H, W, 3), heat.reshape(B * V, K, h, w), num_aug,
             magnitude, use_rotation, use_image_aug, const_magnitude,
-            total_rows=parallel.process_count() * B * V, row_offset=parallel.process_index() * B * V)
+            total_rows=parallel.current_mesh().data * B * total_views,
+            rows=(frames[:, None] * total_views + views[None, :]).reshape(-1))
         images, heat = images.reshape(B, V, H, W, 3), heat.reshape(B, V, K, h, w)
     mean, std = _imagenet_stats(images_u8.device)
     images = (images / 255.0 - mean) / std

@@ -34,3 +34,15 @@ def to_device(array, device: torch.device) -> torch.Tensor:
     if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def use_deterministic_algorithms(device: torch.device) -> None:
+    """Make training on `device` replay bit for bit from run to run, as the
+    JAX package's runs do: on a CUDA device, cuDNN's deterministic
+    algorithms only (its default choice includes backward kernels that sum
+    with atomics in a varying order) and no autotuning (``benchmark``, which
+    may pick another algorithm each run).  The CPU needs nothing.  Process
+    wide, as cuDNN's flags are."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False

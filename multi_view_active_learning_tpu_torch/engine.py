@@ -28,20 +28,34 @@ clipped loss, or no real crop) selected on the device, so a step never
 waits on the host.
 
 Under a process group (``parallel``; one process a card) the engine
-computes what the JAX engine computes on the global batch of a ``'data'``
-mesh, each rank holding its rows: BatchNorm's train-mode statistics over
-the global batch (models/layers.py), the losses over the global count of
-real crops and valid joints, one all-reduce (a sum) of the flat gradient
-with the loss, so the step-skip and the update are the same bits on every
-rank; int8 calibration's activation maxima over all ranks; RANDOM's draws
-for the global batch, of which each rank keeps its rows.
+computes what the JAX engine computes on the global batch of a ``('data',
+'view')`` mesh, each rank holding its data row's frames and, when the view
+axis divides a frame's views, its block of them (``parallel.view_slice``;
+the camera arrays, ``proj_matrices`` and ``per_view_joint_valid``, always
+hold every view, and give the engine the frame's view count): BatchNorm's
+train-mode statistics over the global batch (models/layers.py), the losses
+over the global count of real crops and valid joints, one all-reduce (a
+sum) of the flat gradient with the loss, so the step-skip and the update
+are the same bits on every rank, all three over ``parallel.batch_group``
+(every rank when views shard, else the data group); the triangulation's
+keypoints, the per-view uncertainty values and the EMBEDDING view sum
+gathered within the view group; int8 calibration's activation maxima over
+all ranks; RANDOM's draws for the global batch, of which each rank keeps
+its data row's.
+
+The exact reformulation options (JAX models/pose_resnet.py, ops/
+packed_conv.py) change how a layer computes, never what: under
+``TPU.SPACE_TO_DEPTH_STEM`` PoseResNet's uint8 frames are space-to-depth'd
+before normalization and the stem runs as a dense 4x4 conv (float or
+int8); ``TPU.FAST_DECONV`` computes the float head's transposed convs as
+``PhaseDeconv``; ``TPU.HRNET_PACKED_MAX_CH`` packs HRNet's narrow branch
+convs (``PackedConv2d``).  The int8 head (K4) and the K3 head take
+precedence over FAST_DECONV where they are on, as in JAX.
 
 The engine owns the model and its inference weights (``load_state_dict``,
 or ``use_state`` for a TrainState, which refreshes them, the int8 weights
-and the K3 packs only when the state has changed), runs on the CUDA device
-unless given ``device="cpu"``, and raises ``NotImplementedError`` for
-every config option this port does not implement yet instead of ignoring
-it.
+and the K3 packs only when the state has changed) and runs on the CUDA
+device unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -60,15 +74,10 @@ from .models import quantize
 from .models.layers import batch_norms
 from .ops import geometry
 from .ops import heatmap as heatmap_ops
+from .ops.image import space_to_depth
 from .ops import triangulate as tri
 from .ops import uncertainty
 from .utils import prng
-
-# (config key, value that is not ported, ROADMAP queue item)
-_UNPORTED = (
-    ("TPU.SPACE_TO_DEPTH_STEM", True, "Queue A12, exact reformulation options"),
-    ("TPU.FAST_DECONV", True, "Queue A12, exact reformulation options"),
-)
 
 SCORING_STRATEGIES = ("TRIANGULATION", "RANDOM", "CORESET", "MPE", "HP", "BSB")
 
@@ -83,29 +92,11 @@ INT8_SAFE_STRATEGIES = ("TRIANGULATION", "HP", "CORESET", "RANDOM")
 INT8_MIXED_TAIL: Dict[str, int] = {}
 
 
-def _get(cfg, dotted: str):
-    node = cfg
-    for part in dotted.split("."):
-        node = getattr(node, part)
-    return node
-
-
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError naming the key and the ROADMAP item for
-    each option this port does not implement yet."""
-    for key, value, item in _UNPORTED:
-        if _get(cfg, key) == value:
-            raise NotImplementedError(
-                "%s=%r is not ported to PyTorch yet (ROADMAP %s)" % (key, value, item)
-            )
-    # TPU.VIEW_AXIS > 1 raises (Queue A9b); a TPU.DATA_AXIS that is not
-    # the world size is a ValueError.
+    """Check the config's mesh against the process group, as JAX's make_mesh
+    does (ValueError), and make it the run's layout (``parallel.use_mesh``).
+    Every option of the JAX package's config is ported."""
     parallel.mesh_from_config(cfg)
-    if cfg.TPU.HRNET_PACKED_MAX_CH > 0:
-        raise NotImplementedError(
-            "TPU.HRNET_PACKED_MAX_CH=%r is not ported to PyTorch yet (ROADMAP Queue A12, "
-            "exact reformulation options)" % cfg.TPU.HRNET_PACKED_MAX_CH
-        )
 
 
 def _int8_supported(cfg) -> bool:
@@ -353,10 +344,12 @@ class Engine:
             dict(self.model.named_buffers())[n].shape) for n in self.buffer_names}
         return TrainState(params, buffers, self.device)
 
-    def _bound_model(self, tensors: Mapping[str, torch.Tensor]):
+    def _bound_model(self, tensors: Mapping[str, torch.Tensor], group=None):
         """Context: the model's parameters replaced by `tensors` (same names)
-        in train mode, restored on exit.  The backward pass runs inside, so
-        a rematerialized forward (TPU.REMAT) also sees the bound tensors."""
+        in train mode, its BatchNorms' statistics taken over `group`'s rows
+        (``parallel.batch_group``), restored on exit.  The backward pass runs
+        inside, so a rematerialized forward (TPU.REMAT) also sees the bound
+        tensors."""
         import contextlib
 
         @contextlib.contextmanager
@@ -368,7 +361,7 @@ class Engine:
                 saved.append((module, leaf, module._parameters[leaf]))
                 module._parameters[leaf] = t
             for _, bn in self._bns:
-                bn.batch_stats = None
+                bn.batch_stats, bn.group = None, group
             self.model.train()
             try:
                 yield
@@ -384,17 +377,21 @@ class Engine:
         """The train-mode forward and backward on `state`'s weights:
         (this rank's share of the loss, its gradients in parameter order,
         the first crop's heatmap [K, h, w], the global batch's real crop
-        count).  Each BatchNorm keeps its batch statistics in its record."""
+        count, the group the batch's sums run over).  Each BatchNorm keeps
+        its batch statistics in its record."""
         loss_type = self.cfg.TRAIN.LOSS
         if loss_type not in TRAIN_LOSSES:
             raise NotImplementedError("Unknown TRAIN.LOSS: %s" % loss_type)
         images = self._tensor(images, torch.float32)
+        per_view_joint_valid = self._tensor(per_view_joint_valid, torch.bool)
+        views = self._views(images, per_view_joint_valid.shape[1])
+        group = parallel.batch_group(per_view_joint_valid.shape[1])
         B, V = images.shape[0], images.shape[1]
         x = images.reshape((B * V,) + tuple(images.shape[2:])).permute(0, 3, 1, 2).contiguous()
         gt = self._tensor(gt_heatmaps, torch.float32)
         gt = gt.reshape((B * V,) + tuple(gt.shape[2:]))
         frame_valid = self._tensor(frame_valid, torch.bool)
-        mask = (self._tensor(per_view_joint_valid, torch.bool)
+        mask = (per_view_joint_valid[:, views]
                 & frame_valid[:, None, None]).reshape(B * V, -1, 1, 1)
         # The loss counts REAL crops only (JAX engine.py:161-166): padding
         # rows in the denominator would dilute a tail batch's gradient.  The
@@ -406,11 +403,11 @@ class Engine:
         if integral:
             counts.append(torch.sum(heatmap_ops.integral_valid(gt, mask[:, :, 0, 0]))
                           .to(torch.float32))
-        counts = parallel.all_reduce_sum(torch.stack(counts))
+        counts = parallel.all_reduce_sum(torch.stack(counts), group)
         n_valid_crops = counts[0]
 
         leaves = {n: state.params[n].detach().requires_grad_() for n in self.param_names}
-        with self._bound_model(leaves):
+        with self._bound_model(leaves, group):
             out = self.model(x)  # [B*V, K, h, w] float32
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
             if loss_type in ("MSE", "MSE+INTEGRAL"):
@@ -422,7 +419,7 @@ class Engine:
                     out, gt, mask[:, :, 0, 0], beta=self.cfg.TRAIN.INTEGRAL_BETA,
                     num_valid=counts[1])
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), grads, out[0].detach(), n_valid_crops
+        return loss.detach(), grads, out[0].detach(), n_valid_crops, group
 
     def loss_and_grads(self, state: TrainState, images, gt_heatmaps, per_view_joint_valid,
                        frame_valid) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -430,8 +427,8 @@ class Engine:
         each of `state.params`, which stay as they are (train_step's
         arguments; only `state.params` is read).  Under a process group,
         this rank's share of both (train_step sums them over the ranks)."""
-        loss, grads, _, _ = self._loss_and_grads(state, images, gt_heatmaps,
-                                                 per_view_joint_valid, frame_valid)
+        loss, grads, _, _, _ = self._loss_and_grads(state, images, gt_heatmaps,
+                                                    per_view_joint_valid, frame_valid)
         for _, bn in self._bns:
             bn.batch_stats = None
         return loss, dict(zip(self.param_names, grads))
@@ -443,13 +440,15 @@ class Engine:
         images: float32 [B, V, H, W, 3], normalized (``device_prepare``);
         gt_heatmaps: [B, V, K, h, w]; per_view_joint_valid: [B, V, K] bool;
         frame_valid: [B] bool (padding rows are False and add no loss).
+        Under view sharding images and gt_heatmaps hold this rank's views
+        (``parallel.view_slice(V)``) and per_view_joint_valid all V.
         Returns (state, metrics) with metrics on the device: loss, skipped
         (the update was not applied), lr (the one this step used) and
         first_heatmap (the first crop's prediction [K, h, w], float32).
         Nothing here waits on the card.  Under a process group the batch is
         this rank's rows of the global batch; loss and skipped are the
         global batch's, and the state stays the same bits on every rank."""
-        loss, grads, first_heatmap, n_valid_crops = self._loss_and_grads(
+        loss, grads, first_heatmap, n_valid_crops, group = self._loss_and_grads(
             state, images, gt_heatmaps, per_view_joint_valid, frame_valid)
         missing = [name for name, bn in self._bns if bn.batch_stats is None]
         if missing:
@@ -461,7 +460,7 @@ class Engine:
             # share's, not a mean over ranks), with the loss in the same
             # collective: every rank then skips or steps alike.
             g = parallel.all_reduce_sum(torch.cat([t.reshape(-1) for t in grads]
-                                                  + [loss.reshape(1)]))
+                                                  + [loss.reshape(1)]), group)
             g, loss = g[:-1], g[-1]
             ok = (torch.isfinite(loss) & (loss <= self.cfg.TRAIN.LOSS_CLIP_VALUE)
                   & (n_valid_crops > 0))
@@ -486,7 +485,7 @@ class Engine:
             state.count.copy_(torch.where(ok, count, state.count))
             state.step.add_(1)
         for _, bn in self._bns:
-            bn.batch_stats = None
+            bn.batch_stats, bn.group = None, None
         state.version += 1
         metrics = {"loss": loss, "skipped": ~ok, "lr": lr, "first_heatmap": first_heatmap}
         return state, metrics
@@ -513,13 +512,32 @@ class Engine:
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    @staticmethod
+    def _views(images: torch.Tensor, num_views: int) -> slice:
+        """This rank's views of a frame's `num_views` (``parallel.
+        view_slice``), checked against the images it was given."""
+        views = parallel.view_slice(num_views)
+        if images.shape[1] != views.stop - views.start:
+            raise ValueError("images hold %d views; this rank holds views %d-%d of %d"
+                             % (images.shape[1], views.start, views.stop - 1, num_views))
+        return views
+
     def _flatten_normalize(self, images: torch.Tensor) -> torch.Tensor:
         """uint8 [B, V, H, W, 3] -> normalized NHWC [B*V, H, W, 3] in the
-        compute dtype; float inputs are taken as already normalized."""
+        compute dtype; float inputs are taken as already normalized.  Under
+        TPU.SPACE_TO_DEPTH_STEM (PoseResNet, even H and W) the uint8 frames
+        are space-to-depth'd first, a quarter of the bytes of the normalized
+        ones, and normalized as [B*V, H/2, W/2, 12] with the statistics
+        tiled by 4 (JAX engine.py:256-270); the stem takes either layout."""
         B, V = images.shape[0], images.shape[1]
         flat = images.reshape((B * V,) + tuple(images.shape[2:]))
         if flat.dtype == torch.uint8:
-            flat = (flat.to(self.dtype) / 255.0 - self._mean) / self._std
+            mean, std = self._mean, self._std
+            if (self.cfg.TPU.SPACE_TO_DEPTH_STEM and self.model_type == "POSE_RESNET"
+                    and flat.shape[1] % 2 == 0 and flat.shape[2] % 2 == 0):
+                flat = space_to_depth(flat)
+                mean, std = mean.repeat(4), std.repeat(4)
+            flat = (flat.to(self.dtype) / 255.0 - mean) / std
         return flat
 
     def _int8_forward(self, flat: torch.Tensor, act_scales=None, collect_scales=False):
@@ -594,22 +612,26 @@ class Engine:
         joint_valid: [B, K] bool; pairs: [P, 2]; gt_keypoints_3d: [B, K, 3].
         RANDOM draws ``jax.random.uniform(key, (B,))``'s bits from `key`, a
         threefry key of ``utils.prng`` (padded rows draw too; under a process
-        group the global batch's ``(B * world,)`` draws, of which this rank
-        keeps its rows); MPE / HP / BSB aggregate over the valid
+        group the global batch's ``(B * data,)`` draws, of which this rank
+        keeps its data row's); MPE / HP / BSB aggregate over the valid
         (view, joint) entries by their `*_aggregate` ("AVG" or "STD").  The
         forward is int8 when ``use_int8``, with the static ``int8_scales`` of
         ``int8_calibrate`` if given.  Returns keypoints_3d [B, K, 3],
         sal_metric [B], inlier_count [B], al_metric [B] and mkpe [B], plus
         embedding [B, C] (the view-averaged pooled trunk features) for
-        CORESET with AL.CORESET_FEATURES=EMBEDDING.
+        CORESET with AL.CORESET_FEATURES=EMBEDDING.  Under view sharding the
+        images hold this rank's views (``parallel.view_slice(V)``, V from
+        proj_matrices) and every output is the frame's, the same on each
+        rank of the view group.
         """
         if al_strategy not in SCORING_STRATEGIES:
             raise NotImplementedError("Unknown AL strategy: %s" % al_strategy)
         if al_strategy == "RANDOM" and key is None:
             raise ValueError("the RANDOM strategy needs a PRNG key (utils.prng.PRNGKey)")
         embedding = None
+        num_views = proj_matrices.shape[1]
         if al_strategy == "CORESET" and self.cfg.AL.CORESET_FEATURES == "EMBEDDING":
-            heatmaps, embedding = self._features_forward(images)
+            heatmaps, embedding = self._features_forward(images, num_views)
         else:
             heatmaps = self.forward(images, int8_scales, use_int8=self.use_int8)
         joint_valid = self._tensor(joint_valid, torch.bool)
@@ -629,17 +651,20 @@ class Engine:
         )
         B = heatmaps.shape[0]
         if al_strategy == "RANDOM":
-            rank = parallel.process_index()
-            draws = prng.uniform(key, (B * parallel.process_count(),))
-            al_metric = to_device(draws[rank * B:(rank + 1) * B], self.device)
+            row = parallel.data_index()
+            draws = prng.uniform(key, (B * parallel.current_mesh().data,))
+            al_metric = to_device(draws[row * B:(row + 1) * B], self.device)
         elif al_strategy == "TRIANGULATION":
             al_metric = res["metric"]
         elif al_strategy == "MPE":
-            al_metric = uncertainty.multi_peak_entropy(heatmaps, joint_valid, mpe_aggregate)
+            al_metric = uncertainty.multi_peak_entropy(heatmaps, joint_valid, mpe_aggregate,
+                                                       num_views=num_views)
         elif al_strategy == "HP":
-            al_metric = uncertainty.highest_probability(heatmaps, joint_valid, hp_aggregate)
+            al_metric = uncertainty.highest_probability(heatmaps, joint_valid, hp_aggregate,
+                                                        num_views=num_views)
         elif al_strategy == "BSB":
-            al_metric = uncertainty.best_vs_second_best(heatmaps, joint_valid, bsb_aggregate)
+            al_metric = uncertainty.best_vs_second_best(heatmaps, joint_valid, bsb_aggregate,
+                                                        num_views=num_views)
         else:  # CORESET ranks poses or embeddings afterwards; no per-frame metric
             al_metric = torch.zeros((B,), device=self.device)
 
@@ -661,38 +686,53 @@ class Engine:
             out["embedding"] = embedding
         return out
 
-    def _features_forward(self, images):
+    def _features_forward(self, images, num_views: Optional[int] = None):
         """The standard float forward with the pooled trunk features:
         (heatmaps [B, V, K, h, w], view-averaged embedding [B, C] float32),
         shared by score_step and embed_step so the pool's and the labeled
         set's embeddings come from one function.  Never int8 and never K3,
         whatever TPU.INT8_SCORING_FORCE or PALLAS_HEAD say (JAX
         engine.py:550-567): k-center distances on requantized features buy
-        noise, not speed."""
+        noise, not speed.  `num_views` (default: the images') is the frame's
+        view count; under view sharding the average is a sum over this
+        rank's views, summed within the view group, over `num_views`."""
         images = self._tensor(images)
         B, V = images.shape[0], images.shape[1]
+        num_views = V if num_views is None else num_views
+        self._views(images, num_views)
         x = self._flatten_normalize(images).permute(0, 3, 1, 2).contiguous()
         out, feats = self.model(x, return_features=True)
         heatmaps = out.reshape((B, V) + tuple(out.shape[1:]))
-        return heatmaps, torch.mean(feats.reshape(B, V, -1), dim=1)
+        feats = feats.reshape(B, V, -1)
+        if not parallel.views_split(num_views):
+            return heatmaps, torch.mean(feats, dim=1)
+        total = parallel.all_reduce_sum(torch.sum(feats, dim=1), parallel.view_group())
+        return heatmaps, total / num_views
 
     @torch.inference_mode()
-    def embed_step(self, images) -> torch.Tensor:
+    def embed_step(self, images, num_views: Optional[int] = None) -> torch.Tensor:
         """Pooled trunk embeddings [B, V, H, W, 3] -> [B, C] float32: the
         AL.CORESET_FEATURES=EMBEDDING features of frames the scoring sweep
-        does not visit (the labeled set)."""
-        return self._features_forward(images)[1]
+        does not visit (the labeled set).  `num_views`: the frame's view
+        count when the images are this rank's share of it."""
+        return self._features_forward(images, num_views)[1]
 
     @torch.inference_mode()
-    def loss_step(self, images, gt_heatmaps) -> torch.Tensor:
+    def loss_step(self, images, gt_heatmaps, num_views: Optional[int] = None) -> torch.Tensor:
         """Per-frame heatmap MSE for CLUSTER TYPE=LOSS (reference:
         strategy.py:173-187): sum((heatmaps - gt)^2) / (h * w) per frame,
         [B].  gt_heatmaps in the port's layout [B, V, K, h, w].  Always the
-        float forward."""
+        float forward.  `num_views`: the frame's view count when images and
+        gt_heatmaps are this rank's share of it (summed within the view
+        group)."""
         heatmaps = self.forward(images, use_int8=False)
         sq = torch.square(heatmaps - self._tensor(gt_heatmaps, torch.float32))
         h, w = heatmaps.shape[-2], heatmaps.shape[-1]
-        return torch.sum(sq, dim=(1, 2, 3, 4)) / (h * w)
+        loss = torch.sum(sq, dim=(1, 2, 3, 4)) / (h * w)
+        if num_views is not None and parallel.views_split(num_views):
+            self._views(heatmaps, num_views)
+            loss = parallel.all_reduce_sum(loss, parallel.view_group())
+        return loss
 
     @torch.inference_mode()
     def eval_step(self, images, proj_matrices, joint_valid, pairs,

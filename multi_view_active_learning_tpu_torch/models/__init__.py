@@ -25,11 +25,13 @@ def build_model(cfg) -> torch.nn.Module:
             num_joints=cfg.DATA.NUM_JOINTS,
             num_layers=cfg.POSE_ESTIMATOR.NUM_LAYERS,
             dtype=compute_dtype(cfg),
+            fast_deconv=cfg.TPU.FAST_DECONV,
         )
     if cfg.POSE_ESTIMATOR.TYPE == "HRNET":
         return PoseHighResolutionNet.from_config(
             num_joints=cfg.DATA.NUM_JOINTS,
             hrnet_cfg=cfg.POSE_ESTIMATOR.HRNET,
             dtype=compute_dtype(cfg),
+            packed_max_channels=cfg.TPU.HRNET_PACKED_MAX_CH,
         )
     raise ValueError("Unknown POSE_ESTIMATOR.TYPE: %s" % cfg.POSE_ESTIMATOR.TYPE)

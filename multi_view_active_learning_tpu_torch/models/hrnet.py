@@ -43,16 +43,18 @@ def _conv_bn(cin: int, cout: int, kernel: int, stride: int, relu: bool) -> nn.Se
     return nn.Sequential(*layers)
 
 
-def _branch(block, inplanes: int, planes: int, blocks: int) -> nn.Sequential:
-    """One branch's residual blocks; the first projects when widths differ."""
+def _branch(block, inplanes: int, planes: int, blocks: int,
+            packed: bool = False) -> nn.Sequential:
+    """One branch's residual blocks; the first projects when widths differ.
+    `packed`: BasicBlocks with 2x2-output-packed 3x3 convs."""
     downsample = None
     if inplanes != planes * block.expansion:
         downsample = nn.Sequential(
             Conv2d(inplanes, planes * block.expansion, 1, 1, bias=False),
             BatchNorm2d(planes * block.expansion, momentum=BN_MOMENTUM),
         )
-    layers = [block(inplanes, planes, 1, downsample)]
-    layers += [block(planes * block.expansion, planes) for _ in range(1, blocks)]
+    layers = [block(inplanes, planes, 1, downsample, packed=packed)]
+    layers += [block(planes * block.expansion, planes, packed=packed) for _ in range(1, blocks)]
     return nn.Sequential(*layers)
 
 
@@ -61,17 +63,20 @@ class HighResolutionModule(nn.Module):
     hrnet.py:98-287).  ``fuse_layers[i][j]`` carries branch j to branch i's
     resolution and width: None for j == i, 1x1 conv + BN + nearest upsample
     for j > i, a chain of stride-2 3x3 conv + BN for j < i with a ReLU on
-    every step but the last."""
+    every step but the last.  Branches of BasicBlocks with at most
+    `packed_max_channels` channels pack their 3x3 convs (JAX
+    models/hrnet.py:64-90; 0: none)."""
 
     def __init__(self, num_branches: int, block: str, num_blocks: Sequence[int],
                  num_inchannels: Sequence[int], num_channels: Sequence[int],
-                 multi_scale_output: bool = True):
+                 multi_scale_output: bool = True, packed_max_channels: int = 0):
         super().__init__()
         block_cls = BLOCKS[block]
         out = [c * block_cls.expansion for c in num_channels]
         self.num_branches = num_branches
         self.branches = nn.ModuleList(
-            _branch(block_cls, num_inchannels[b], num_channels[b], num_blocks[b])
+            _branch(block_cls, num_inchannels[b], num_channels[b], num_blocks[b],
+                    packed=block == "BASIC" and out[b] <= packed_max_channels)
             for b in range(num_branches))
         self.fuse_layers = None
         if num_branches > 1:
@@ -116,13 +121,15 @@ def _stage_tuple(s):
 class PoseHighResolutionNet(nn.Module):
     """images [N, 3, H, W] -> heatmaps [N, num_joints, H/4, W/4] float32
     (reference: hrnet.py:293-501).  Stages are (num_modules, num_branches,
-    block, num_blocks, num_channels), the JAX package's encoding."""
+    block, num_blocks, num_channels), the JAX package's encoding.
+    `packed_max_channels`: TPU.HRNET_PACKED_MAX_CH (HighResolutionModule)."""
 
     def __init__(self, num_joints: int,
                  stage2=(1, 2, "BASIC", (4, 4), (32, 64)),
                  stage3=(4, 3, "BASIC", (4, 4, 4), (32, 64, 128)),
                  stage4=(3, 4, "BASIC", (4, 4, 4, 4), (32, 64, 128, 256)),
-                 final_conv_kernel: int = 1, dtype: torch.dtype = torch.float32):
+                 final_conv_kernel: int = 1, dtype: torch.dtype = torch.float32,
+                 packed_max_channels: int = 0):
         super().__init__()
         self.compute_dtype = dtype
         self.remat = False
@@ -150,7 +157,8 @@ class PoseHighResolutionNet(nn.Module):
             setattr(self, "transition%d" % (s - 1), nn.ModuleList(transition))
             setattr(self, "stage%d" % s, nn.Sequential(*(
                 HighResolutionModule(num_branches, block, num_blocks, cur, num_channels,
-                                     multi_scale_output=not (s == 4 and m == num_modules - 1))
+                                     multi_scale_output=not (s == 4 and m == num_modules - 1),
+                                     packed_max_channels=packed_max_channels)
                 for m in range(num_modules))))
             prev = cur
         self.final_layer = Conv2d(prev[0], num_joints, final_conv_kernel, 1,
@@ -161,10 +169,12 @@ class PoseHighResolutionNet(nn.Module):
                 module.to(dtype)
 
     @classmethod
-    def from_config(cls, num_joints: int, hrnet_cfg, dtype: torch.dtype = torch.float32):
+    def from_config(cls, num_joints: int, hrnet_cfg, dtype: torch.dtype = torch.float32,
+                    packed_max_channels: int = 0):
         """From ``POSE_ESTIMATOR.HRNET`` of the config."""
         return cls(num_joints, _stage_tuple(hrnet_cfg.STAGE2), _stage_tuple(hrnet_cfg.STAGE3),
-                   _stage_tuple(hrnet_cfg.STAGE4), hrnet_cfg.FINAL_CONV_KERNEL, dtype)
+                   _stage_tuple(hrnet_cfg.STAGE4), hrnet_cfg.FINAL_CONV_KERNEL, dtype,
+                   packed_max_channels)
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
         """return_features=True returns (heatmaps, pooled), with pooled the

@@ -9,9 +9,12 @@
   * ``BatchNorm2d`` in train mode normalizes by the statistics of the
     **global** batch, as JAX computes them over a sharded batch (JAX
     engine.py:19-21): ``_GlobalBatchNorm`` sums each channel's count, mean
-    and centered sum of squares over the ranks (the identity in one
-    process), and in the backward pass the sums of ``dy`` and
-    ``dy * xhat`` that the other ranks' share of the gradient needs.  The
+    and centered sum of squares over the ranks of the module's ``group``
+    (set by the engine to the batch's group, ``parallel.batch_group``: every
+    rank when views shard, the data group when the ranks of a data row hold
+    the same crops; the identity in one process), and in the backward pass
+    the sums of ``dy`` and ``dy * xhat`` that the other ranks' share of the
+    gradient needs.  The
     variance is combined from each rank's centered one in float64, not
     taken as flax's ``E[x^2] - E[x]^2``, which loses the digits of a
     variance far below the squared mean (ROADMAP Queue C7): a batch padded
@@ -58,7 +61,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
     Forward: the native kernel normalizes this rank's rows by their own
     statistics; each rank's count, mean and sum of squares about its mean
-    are then summed over the ranks in float64, as ``[n * mean | M2 + n *
+    are then summed over the ranks of `group` in float64, as ``[n * mean | M2 + n *
     mean^2 | n]`` (one collective), giving the global mean and biased
     variance, and with more than one rank the rows are normalized again by
     those.  Backward: the native kernel's gradient uses this rank's means of
@@ -70,7 +73,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
     code, and every result is the native kernel's."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         c = x.shape[1]
         n = x.numel() // c
         y, mean, invstd = torch.native_batch_norm(x, weight, bias, None, None, True, 0.0, eps)
@@ -78,17 +81,17 @@ class _GlobalBatchNorm(torch.autograd.Function):
         m2 = (invstd.double() ** -2 - eps) * n
         sums = parallel.all_reduce_sum(torch.cat([
             mean64 * n, m2 + n * mean64 * mean64,
-            torch.full((1,), n, dtype=torch.float64, device=x.device)]))
+            torch.full((1,), n, dtype=torch.float64, device=x.device)]), group)
         total = sums[-1]
         mean64 = sums[:c] / total
         batch_mean = mean64.to(weight.dtype)
         batch_var = torch.clamp(sums[c:2 * c] / total - mean64 * mean64, min=0.0).to(weight.dtype)
-        if parallel.process_count() > 1:
+        if parallel.group_size(group) > 1:
             mean, invstd = batch_mean, torch.rsqrt(batch_var + eps)
             y = torch.batch_norm(x, weight, bias, batch_mean, batch_var, False, 0.0, eps,
                                  torch.backends.cudnn.enabled)
         ctx.save_for_backward(x, weight, mean, invstd, total)
-        ctx.eps = eps
+        ctx.eps, ctx.group = eps, group
         ctx.mark_non_differentiable(batch_mean, batch_var)
         return y, batch_mean, batch_var
 
@@ -100,26 +103,27 @@ class _GlobalBatchNorm(torch.autograd.Function):
         dx, dw, db = torch.ops.aten.native_batch_norm_backward(
             grad, x, weight, None, None, mean, invstd, True, ctx.eps, [True, True, True])
         # db = sum(dy), dw = sum(dy * xhat) over this rank's rows.
-        sums = parallel.all_reduce_sum(torch.cat([db, dw]))
-        if parallel.process_count() > 1:
+        sums = parallel.all_reduce_sum(torch.cat([db, dw]), ctx.group)
+        if parallel.group_size(ctx.group) > 1:
             total = total.to(dw.dtype)
             alpha = db / n - sums[:c] / total
             beta = (dw / n - sums[c:] / total) * invstd
             scale = weight * invstd
             dx = torch.addcmul((dx.to(scale.dtype) + (scale * (alpha - mean * beta))[:, None, None]),
                                x, (scale * beta)[:, None, None]).to(x.dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """Float32 parameters and statistics; the output in the input's dtype."""
 
     batch_stats = None  # (mean, biased var) of the last train-mode batch
+    group = None  # the ranks whose rows make the batch (parallel.Group; None: every rank)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.group)
         if self.batch_stats is None:
             self.batch_stats = (mean, var)
         return y

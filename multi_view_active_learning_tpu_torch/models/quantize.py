@@ -77,13 +77,14 @@ def _quant_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
 
 
-def _im2col(xq: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+def _im2col(xq: torch.Tensor, k: int, stride: int, pad=None) -> torch.Tensor:
     """NHWC [N, H, W, C] -> patches [N, Ho, Wo, k*k*C] ordered (ky, kx, c),
-    with the convolution's padding k // 2 (F.unfold refuses s8)."""
+    with the convolution's padding k // 2, or `pad` = (before, after) on
+    both spatial axes (F.unfold refuses s8)."""
     if k == 1:
         return xq[:, ::stride, ::stride, :]
-    pad = k // 2
-    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    before, after = (k // 2, k // 2) if pad is None else pad
+    xp = F.pad(xq, (0, 0, before, after, before, after))
     n, hp, wp, _ = xp.shape
     ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
     taps = [
@@ -93,9 +94,9 @@ def _im2col(xq: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     return torch.stack(taps, dim=3).reshape(n, ho, wo, -1)
 
 
-def _int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int) -> torch.Tensor:
+def _int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad=None) -> torch.Tensor:
     """s8 NHWC input times s8 weights [Cout, k, k, Cin] -> s32 [N, Ho, Wo, Cout]."""
-    cols = _im2col(xq, wq.shape[1], stride)
+    cols = _im2col(xq, wq.shape[1], stride, pad)
     n, ho, wo, depth = cols.shape
     acc = int8_matmul(cols.reshape(n * ho * wo, depth), wq.reshape(wq.shape[0], depth))
     return acc.reshape(n, ho, wo, -1)
@@ -234,6 +235,23 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
     return out
 
 
+def stem_s32(qp: Mapping[str, torch.Tensor], xq: torch.Tensor) -> torch.Tensor:
+    """PoseResNet's s8 stem product: s8 NHWC [N, H, W, 3] -> s32 [N, H/2,
+    W/2, 64], the 7x7 stride-2 conv.  A space-to-depth'd [N, H/2, W/2, 12]
+    input (TPU.SPACE_TO_DEPTH_STEM) takes the s8 weights through
+    SpaceToDepthStem's remap, a 4x4 stride-1 conv padded (2, 1) (JAX
+    models/quantize.py:236-245): the remap only moves and zero-pads weights,
+    so quantization commutes with it, the per-channel scales stay, and the
+    s32 sums hold the same products."""
+    wq = qp["conv1.wq"]
+    if xq.shape[-1] != 4 * wq.shape[-1]:
+        return _int8_conv(xq, wq, 2)
+    co, ci = wq.shape[0], wq.shape[-1]
+    wp = F.pad(wq, (0, 0, 1, 0, 1, 0))  # [co, 8, 8, ci]
+    wq = wp.reshape(co, 4, 2, 4, 2, ci).permute(0, 1, 3, 2, 4, 5).reshape(co, 4, 4, 4 * ci)
+    return _int8_conv(xq, wq, 1, pad=(2, 1))
+
+
 def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.Tensor,
                                   num_layers: int, act_scales=None, collect_scales: bool = False,
                                   int8_head: bool = False, float_tail_stages: int = 0):
@@ -252,7 +270,7 @@ def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.
 
     # Stem: 7x7/s2 int8 conv + BN + ReLU, then the 3x3/s2 maxpool (-inf pad).
     sx = scales.scale_for("stem", x)
-    acc = _int8_conv(_quant_act(x, sx), qp["conv1.wq"], 2)
+    acc = stem_s32(qp, _quant_act(x, sx))
     x = torch.relu(acc.to(torch.float32) * (sx * qp["conv1.ws"] * qp["bn1.scale"]) + qp["bn1.bias"])
     x = x.to(_BF16)
     x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)

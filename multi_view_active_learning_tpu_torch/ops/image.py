@@ -1,4 +1,4 @@
-"""On-device image ops: batched bilinear crop + resize.
+"""On-device image ops: batched bilinear crop + resize, and space-to-depth.
 
 The port's counterpart of the JAX package's ops/image.py.  Under
 ``DATA.DEVICE_CROP`` the loader ships full frames and the square-box crop
@@ -59,3 +59,13 @@ def crop_resize_uint8(images: torch.Tensor, boxes: torch.Tensor, out_h: int,
     out = crop_and_resize_bilinear(flat, boxes.reshape(B * V, 4), out_h, out_w)
     out = torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
     return out.reshape(B, V, out_h, out_w, out.shape[-1])
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [N, H, W, C] -> [N, H/2, W/2, 4C], channels in (p, q, c) order
+    (JAX models/pose_resnet.py:157-164): the input of PoseResNet's stem
+    under TPU.SPACE_TO_DEPTH_STEM.  Cheap on uint8 frames, which is where
+    the engine and the serve function apply it."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // 2, w // 2, 4 * c)

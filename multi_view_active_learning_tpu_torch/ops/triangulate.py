@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..kernels import decode as decode_kernel
 from . import geometry, heatmap
 
@@ -319,7 +320,11 @@ def triangulate_frames(
     Args:
       heatmaps: [B, V, K, h, w] float32 (the port's model layout; the JAX
         package takes [B, V, h, w, K] and moves the axis to this layout).
-      proj_matrices: [B, V, 3, 4].
+        Under view sharding (``parallel.views_split(V)``) this rank's views
+        only, ``parallel.view_slice(V)`` of them: K1 decodes them here and
+        the keypoints and peaks of the frame's V views are all-gathered
+        within the view group before RANSAC, as GSPMD gathers them in JAX.
+      proj_matrices: [B, V, 3, 4], every view.
       valid_joints: [B, K] bool.
       pairs: [P, 2] RANSAC pair set from `all_view_pairs`.
       stride: heatmap-to-image stride.
@@ -331,12 +336,20 @@ def triangulate_frames(
 
     Reference contract: utils/triangulation.py:168-233.
     """
-    V = heatmaps.shape[1]
+    V = proj_matrices.shape[1]
+    views = parallel.view_slice(V)
+    if heatmaps.shape[1] != views.stop - views.start:
+        raise ValueError("heatmaps hold %d views; this rank holds views %d-%d of %d"
+                         % (heatmaps.shape[1], views.start, views.stop - 1, V))
     pairs = torch.as_tensor(pairs, dtype=torch.int64, device=heatmaps.device)
     keypoints_2d, peaks = decode_kernel.decode_keypoints(
         heatmaps, float(stride), valid_joints[:, None, :], use_soft_argmax,
         with_peak=True,
-    )  # [B, V, K, 2], [B, V, K]
+    )  # [B, V_local, K, 2], [B, V_local, K]
+    if parallel.views_split(V):
+        # One collective for both: [B, V, K, 3].
+        gathered = parallel.all_gather_views(torch.cat([keypoints_2d, peaks[..., None]], -1))
+        keypoints_2d, peaks = gathered[..., :2], gathered[..., 2]
     points_kv = keypoints_2d.transpose(1, 2)  # [B, K, V, 2]
     conf = None
     if confidence_weighted:
@@ -356,7 +369,10 @@ def triangulate_frames(
     )
 
     if use_reprojection_xe:
-        metric = reprojection_xe(kp3d, proj_matrices, heatmaps, sigma)
+        # A sum over views: each rank's over its own, then over the view group.
+        metric = reprojection_xe(kp3d, proj_matrices[:, views], heatmaps, sigma)
+        if parallel.views_split(V):
+            metric = parallel.all_reduce_sum(metric, parallel.view_group())
     else:
         metric = mean_err
 

@@ -22,13 +22,20 @@ Softmax quirk kept from the reference: F.softmax on a 2D map without `dim`
 is a softmax over each row, so HP and BSB softmax over `w` only.
 
 AVG / STD aggregate over the valid (view, joint) entries; STD is the
-population std, as the reference's numpy default.
+population std, as the reference's numpy default.  Under view sharding the
+heatmaps are this rank's views of a frame's `num_views`, and the per-(view,
+joint) values are all-gathered within the view group before they are
+aggregated, so AVG and STD see the entries one process sees.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from .. import parallel
 
 _NEG_INF = -1e30
 AGGREGATES = ("AVG", "STD")
@@ -109,11 +116,15 @@ def _masked_entropy(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return -torch.sum(p * logp, dim=-1)
 
 
-def _aggregate(per_vk: torch.Tensor, valid: torch.Tensor, aggregate: str) -> torch.Tensor:
+def _aggregate(per_vk: torch.Tensor, valid: torch.Tensor, aggregate: str,
+               num_views: Optional[int] = None) -> torch.Tensor:
     """AVG or STD over valid (view, joint) entries: per_vk [B, V, K],
-    valid [B, K] -> [B]."""
+    valid [B, K] -> [B].  With `num_views` above per_vk's views, per_vk is
+    this rank's share of a view-sharded frame, gathered here first."""
     if aggregate not in AGGREGATES:
         raise ValueError("aggregate must be AVG or STD, got %s" % aggregate)
+    if num_views is not None and num_views != per_vk.shape[1]:
+        per_vk = parallel.all_gather_views(per_vk)
     mask = valid[:, None, :].expand(per_vk.shape).to(torch.float32)
     n = torch.clamp(torch.sum(mask, dim=(1, 2)), min=1.0)
     mean = torch.sum(per_vk * mask, dim=(1, 2)) / n
@@ -128,21 +139,22 @@ def _valid(valid_joints, heatmaps: torch.Tensor) -> torch.Tensor:
 
 
 def multi_peak_entropy(heatmaps: torch.Tensor, valid_joints, aggregate: str = "AVG",
-                       min_distance: int = 2) -> torch.Tensor:
+                       min_distance: int = 2, num_views: Optional[int] = None) -> torch.Tensor:
     """MPE scores: heatmaps [B, V, K, h, w], valid [B, K] -> [B]."""
     peaks = local_peak_mask(heatmaps, min_distance)
-    return _aggregate(_masked_entropy(heatmaps, peaks), _valid(valid_joints, heatmaps), aggregate)
+    return _aggregate(_masked_entropy(heatmaps, peaks), _valid(valid_joints, heatmaps), aggregate,
+                      num_views)
 
 
-def highest_probability(heatmaps: torch.Tensor, valid_joints,
-                        aggregate: str = "AVG") -> torch.Tensor:
+def highest_probability(heatmaps: torch.Tensor, valid_joints, aggregate: str = "AVG",
+                        num_views: Optional[int] = None) -> torch.Tensor:
     """HP scores: 1 - max of the row-softmaxed heatmap, aggregated -> [B]."""
     hp = 1.0 - torch.amax(_row_softmax(heatmaps), dim=(-2, -1))  # [B, V, K]
-    return _aggregate(hp, _valid(valid_joints, heatmaps), aggregate)
+    return _aggregate(hp, _valid(valid_joints, heatmaps), aggregate, num_views)
 
 
 def best_vs_second_best(heatmaps: torch.Tensor, valid_joints, aggregate: str = "AVG",
-                        min_distance: int = 2) -> torch.Tensor:
+                        min_distance: int = 2, num_views: Optional[int] = None) -> torch.Tensor:
     """BSB scores: |p0 - p1| of the two strongest local peaks of the
     row-softmaxed heatmap, aggregated over valid (view, joint) -> [B]."""
     probs = _row_softmax(heatmaps)
@@ -154,5 +166,6 @@ def best_vs_second_best(heatmaps: torch.Tensor, valid_joints, aggregate: str = "
     # the missing peak reads as probability 0.
     first = torch.where(top2[..., 0] <= _NEG_INF / 2, 0.0, top2[..., 0])
     second = torch.where(top2[..., 1] <= _NEG_INF / 2, 0.0, top2[..., 1])
-    return _aggregate(torch.abs(first - second), _valid(valid_joints, heatmaps), aggregate)
+    return _aggregate(torch.abs(first - second), _valid(valid_joints, heatmaps), aggregate,
+                      num_views)
 

@@ -47,6 +47,7 @@ from torch import nn
 from . import kernels  # registers torch.ops.mval, which an artifact calls
 from .device import resolve_device
 from .ops import heatmap as heatmap_ops
+from .ops.image import space_to_depth
 from .utils import get_logger
 
 _logger = get_logger(__name__)
@@ -92,11 +93,15 @@ class ServeModule(nn.Module):
     The forward routes as ``Engine.forward`` does: the int8 backbone when
     built with static scales (with K4's head under ``TPU.INT8_DECONV``),
     else the float trunk with K3's head under ``TPU.PALLAS_HEAD``
-    (PoseResNet), else the float model."""
+    (PoseResNet), else the float model; under ``TPU.SPACE_TO_DEPTH_STEM``
+    (PoseResNet) the frames are space-to-depth'd before normalization, as
+    ``Engine._flatten_normalize`` does."""
 
     def __init__(self, engine, int8_scales: Optional[Mapping[str, torch.Tensor]] = None):
         super().__init__()
         self.dtype = engine.dtype
+        self.s2d_stem = (bool(engine.cfg.TPU.SPACE_TO_DEPTH_STEM)
+                         and engine.model_type == "POSE_RESNET")
         self.register_buffer("mean", engine._mean.detach().clone())
         self.register_buffer("std", engine._std.detach().clone())
         self.use_int8 = int8_scales is not None
@@ -145,7 +150,11 @@ class ServeModule(nn.Module):
     def forward(self, images: torch.Tensor, square_box: torch.Tensor) -> Dict[str, torch.Tensor]:
         B, V = images.shape[0], images.shape[1]
         flat = images.reshape((B * V,) + tuple(images.shape[2:]))
-        flat = (flat.to(self.dtype) / 255.0 - self.mean) / self.std
+        mean, std = self.mean, self.std
+        if self.s2d_stem and flat.shape[1] % 2 == 0 and flat.shape[2] % 2 == 0:
+            flat = space_to_depth(flat)
+            mean, std = mean.repeat(4), std.repeat(4)
+        flat = (flat.to(self.dtype) / 255.0 - mean) / std
         hm = self._heatmaps(flat)
         hm = hm.reshape((B, V) + tuple(hm.shape[1:])).to(torch.float32)  # [B, V, K, h, w]
         keypoints, confidence = heatmap_ops.decode_keypoints_bbox(hm, square_box, with_peak=True)

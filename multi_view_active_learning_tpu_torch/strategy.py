@@ -34,14 +34,18 @@ keypoints through K1, ``cluster`` dumps per-frame poses or losses, and
 its guid logs and checkpoints.  workflow.py drives them.
 
 Under a process group (``parallel``, one process a card; JAX
-strategy.py:102-224) every loader reads its rank's shard of the pool
-(``pool[rank::world]``, batch counts equalized), so a global batch is
-``BATCH_SIZE x world`` frames, rank r's rows at ``r * B ..``.  A sweep's
-outputs are all-gathered, one collective a batch (``_fetch_global``), and
-keyed by ``FrameLoader.global_batch_layout``: every rank holds the whole
-sal_dict and selects the same frames.  Rank 0 alone writes the guid logs,
-SAL-DICT, checkpoints, configs and records; a barrier follows every
-checkpoint save, so no rank reads one before it is whole.
+strategy.py:102-224) every loader reads its data row's shard of the pool
+(``pool[row::data]``, batch counts equalized), so a global batch is
+``BATCH_SIZE x data`` frames, data row d's rows at ``d * B ..``; under view
+sharding the ranks of a data row load the same frames, each decoding its
+block of their views (``parallel.view_slice``; the camera arrays keep
+every view).  A sweep's outputs, the same on every rank of a data row, are
+all-gathered over the data group, one collective a batch
+(``_fetch_global``), and keyed by ``FrameLoader.global_batch_layout``:
+every rank holds the whole sal_dict and selects the same frames. Rank 0
+alone writes the guid logs, SAL-DICT, checkpoints, configs and records; a
+barrier follows every checkpoint save, so no rank reads one before it is
+whole.
 """
 
 from __future__ import annotations
@@ -130,14 +134,23 @@ class ActiveLearningStrategy:
         """Loader factory (reference: strategy.py:747-760).  `num_workers`
         follows the reference's split: TRAIN.NUM_WORKERS by default,
         AL.INFERENCE.NUM_WORKERS for the scoring loaders; 0 decodes in this
-        process.  `batch_size` is per card, as the reference's per-GPU DDP
-        batch: each rank loads its shard, so the global batch is
-        `batch_size` x world."""
+        process.  `batch_size` is per data row, as the reference's per-GPU
+        DDP batch: each data row loads its shard, so the global batch is
+        `batch_size` x data, and each rank decodes its view column's views."""
         if num_workers is None:
             num_workers = self.al_cfg.TRAIN.NUM_WORKERS
+        mesh = parallel.current_mesh()
         return FrameLoader(pool, self.al_cfg.DATA, self.al_cfg.POSE_ESTIMATOR.STRIDE,
-                           batch_size=batch_size, num_shards=parallel.process_count(),
-                           shard_index=parallel.process_index(), num_workers=num_workers)
+                           batch_size=batch_size, num_shards=mesh.data,
+                           shard_index=parallel.data_index(), num_workers=num_workers,
+                           view_shard=(mesh.view, parallel.view_index()))
+
+    @staticmethod
+    def _views(batch: Dict) -> Tuple[int, slice]:
+        """(the frames' view count, this rank's views of them): the loader
+        decodes those views' images; the camera arrays hold all of them."""
+        num_views = batch["proj_matrices"].shape[1]
+        return num_views, parallel.view_slice(num_views)
 
     def _put(self, arr) -> torch.Tensor:
         """A host array of this rank's rows on the device.  Under more than
@@ -151,16 +164,18 @@ class ActiveLearningStrategy:
     def _fetch_global(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A batch's outputs for the global batch, on every rank (JAX
         :212-224; the reference's sal_dict all_gather, strategy.py:1090-1147):
-        each leaf is every rank's rows concatenated in rank order, global
-        row ``r * B + i`` being rank r's row i (the order of
-        ``FrameLoader.global_batch_layout``).  The leaves travel packed in
-        one byte buffer, one collective a batch; under NCCL it is ordered on
-        the stream and the host does not wait (gloo waits).  The identity
-        without a process group."""
-        if not parallel.active():
+        each leaf is every data row's rows concatenated in row order, global
+        row ``d * B + i`` being data row d's row i (the order of
+        ``FrameLoader.global_batch_layout``), gathered over the data group:
+        the ranks of a data row hold the same outputs.  The leaves travel
+        packed in one byte buffer, one collective a batch; under NCCL it is
+        ordered on the stream and the host does not wait (gloo waits).  The
+        identity without a process group and with one data row of views."""
+        group = parallel.data_group()
+        if not parallel.active() or (group is not None and len(group.ranks) == 1):
             return tree
         flat = [value.contiguous().reshape(-1).view(torch.uint8) for value in tree.values()]
-        gathered = parallel.all_gather_rows(torch.cat(flat)[None])  # [world, bytes]
+        gathered = parallel.all_gather_rows(torch.cat(flat)[None], group)  # [data, bytes]
         out, offset = {}, 0
         for (name, value), part in zip(tree.items(), flat):
             piece = gathered[:, offset:offset + part.numel()].contiguous().view(value.dtype)
@@ -171,7 +186,7 @@ class ActiveLearningStrategy:
     @staticmethod
     def _batch_keys(loader: FrameLoader, index: int, batch: Dict):
         """(guids, frame_valid) of the global batch `index`: the local
-        batch's in one process, every shard's under a process group."""
+        batch's with one data row, every shard's with more."""
         if loader.num_shards > 1:
             return loader.global_batch_layout(index)
         return batch["guid"], batch["frame_valid"]
@@ -224,10 +239,11 @@ class ActiveLearningStrategy:
         """batch["images"] on the device; under DATA.DEVICE_CROP the loader
         ships full frames and the square-box crop + bilinear resize runs
         there (ops/image.py::crop_resize_uint8).  Either way the engine sees
-        [B, V, INPUT_H, INPUT_W, 3] uint8."""
+        [B, V, INPUT_H, INPUT_W, 3] uint8 (this rank's views)."""
         images = self._put(batch["images"])
         if self.al_cfg.DATA.DEVICE_CROP:
-            images = image_ops.crop_resize_uint8(images, self._put(batch["square_box"]),
+            _, views = self._views(batch)
+            images = image_ops.crop_resize_uint8(images, self._put(batch["square_box"][:, views]),
                                                  self.al_cfg.DATA.INPUT_HEIGHT,
                                                  self.al_cfg.DATA.INPUT_WIDTH)
         return images
@@ -237,12 +253,14 @@ class ActiveLearningStrategy:
         device; a training batch is augmented under DATA.NUM_AUG from the
         threefry `key` (JAX strategy.py:286-301)."""
         d = self.al_cfg.DATA
-        return device_prepare(self._device_images(batch), self._put(batch["2d_keypoints"]),
+        num_views, views = self._views(batch)
+        return device_prepare(self._device_images(batch),
+                              self._put(batch["2d_keypoints"][:, views]),
                               self._put(batch["sigma"]), key,
                               stride=self.al_cfg.POSE_ESTIMATOR.STRIDE, train=train,
                               num_aug=d.NUM_AUG if train else 0, magnitude=d.AUG_MAGNITUDE,
                               use_rotation=d.USE_ROTATION, use_image_aug=d.USE_IMAGE_AUG,
-                              const_magnitude=d.USE_CONST_AUG_MAGNITUDE)
+                              const_magnitude=d.USE_CONST_AUG_MAGNITUDE, num_views=num_views)
 
     def new_state(self, salt: int = 0) -> TrainState:
         """A freshly initialized TrainState from RANDOM_SEED + salt."""
@@ -525,7 +543,8 @@ class ActiveLearningStrategy:
 
         def _dispatched():
             for index, batch in enumerate(loader):
-                emb = self.engine.embed_step(self._device_images(batch))
+                emb = self.engine.embed_step(self._device_images(batch),
+                                             num_views=self._views(batch)[0])
                 yield self._batch_keys(loader, index, batch), {"embedding": emb}
 
         try:
@@ -765,7 +784,11 @@ class ActiveLearningStrategy:
                     int8_scales = self.engine.int8_calibrate(images, for_eval=True)
                 heatmaps = self.engine.forward(images, int8_scales,
                                                use_int8=self.engine.use_int8_eval)
-                coords = heatmap_ops.decode_keypoints_bbox(heatmaps, self._put(batch["square_box"]))
+                num_views, views = self._views(batch)
+                coords = heatmap_ops.decode_keypoints_bbox(
+                    heatmaps, self._put(batch["square_box"][:, views]))
+                if parallel.views_split(num_views):
+                    coords = parallel.all_gather_views(coords)  # every view's
                 yield None, {"coords": coords, "gt": self._put(batch["2d_after_crop"]),
                              "frame_valid": self._put(batch["frame_valid"])}
 
@@ -848,7 +871,8 @@ class ActiveLearningStrategy:
                 for index, batch in enumerate(loader):
                     images, gt_heat = self._device_batch(batch, train=False)
                     yield self._batch_keys(loader, index, batch), {
-                        "loss": self.engine.loss_step(images, gt_heat)}
+                        "loss": self.engine.loss_step(images, gt_heat,
+                                                      num_views=self._views(batch)[0])}
 
             try:
                 for (guids, valid), out in self._pipelined_fetch(_dispatched()):

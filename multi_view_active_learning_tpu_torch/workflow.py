@@ -7,8 +7,10 @@
 The port's counterpart of the JAX package's workflow.py (:41-263 there;
 reference: workflow.py:29-273): the six EXPR_TYPEs, in one process or in
 one process a card under torchrun (NCCL between cards, gloo with
-``--device cpu``), where every rank computes its shard of each global
-batch of TRAIN.BATCH_SIZE x N frames and rank 0 writes (``parallel``).
+``--device cpu``) over the ``TPU.DATA_AXIS`` x ``TPU.VIEW_AXIS`` mesh
+(``parallel``): each data row computes its shard of each global batch of
+TRAIN.BATCH_SIZE x data frames, each rank of a row its block of the views
+when the view axis divides them, and rank 0 writes.
 
   * AL / SAL: for each iteration from AL.START_ITER (after copying the
     earlier iterations' checkpoints and guid logs from
@@ -26,9 +28,10 @@ results are written as JSON to RESULTS (a temporary file when unset).
 The run uses the CUDA card (the rank's, ``LOCAL_RANK``) unless
 ``--device`` (or ``device=``) names another device: the port's counterpart
 of JAX_PLATFORMS.  Without a card and without ``--device cpu`` it raises
-(device.resolve_device).  ``TPU.DATA_AXIS`` must be -1 or the number of
-processes (ValueError); ``TPU.VIEW_AXIS > 1`` raises NotImplementedError
-(ROADMAP A9b).
+(device.resolve_device).  ``TPU.VIEW_AXIS`` must divide the number of
+processes and ``TPU.DATA_AXIS`` be -1 or the rest (ValueError, as JAX's
+make_mesh).  On a card the run uses cuDNN's deterministic algorithms
+(``device.use_deterministic_algorithms``), so it replays bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import numpy as np
 from . import config as config_lib
 from . import parallel
 from .data import build_dataset
-from .device import resolve_device
+from .device import resolve_device, use_deterministic_algorithms
 from .strategy import ActiveLearningStrategy
 from .utils import checkpoint as ckpt
 from .utils import get_logger, storage
@@ -137,6 +140,7 @@ def run_experiment(cfg, device=None) -> Dict:
     """Dispatch on EXPR_TYPE; returns the eval dict (empty for CLUSTER).
     Every rank writes its result to RESULTS, as the JAX package does."""
     logger = get_logger("workflow")
+    use_deterministic_algorithms(resolve_device(device))
     if parallel.initialize_distributed(device=device):
         logger.info("Distributed: process %d/%d" % (parallel.process_index(),
                                                      parallel.process_count()))

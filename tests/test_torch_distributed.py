@@ -44,8 +44,9 @@ its rows the in-process mesh, fed the same global batch, is the reference.
     RESULTS only, which every rank writes, as in JAX); no banned module
     (jax, the JAX package) imported in either rank.
   * **Errors.** A TPU.DATA_AXIS that differs from the world size raises
-    ValueError and TPU.VIEW_AXIS 2 raises NotImplementedError naming A9b,
-    under two ranks.
+    ValueError, and so does a TPU.VIEW_AXIS that does not divide it (4),
+    with JAX's make_mesh messages, under two ranks; there TPU.VIEW_AXIS 2
+    makes the 1 x 2 mesh (view sharding: tests/test_torch_view_sharding.py).
 
 Both packages start from the same weights (the port's from JAX's init
 through ``from_flax``; in the CLI, JAX's ``new_state`` from the port's
@@ -677,17 +678,19 @@ ERROR_SCRIPT = textwrap.dedent("""
     import sys
     sys.path.insert(0, %r)
     from multi_view_active_learning_tpu_torch import workflow
+    from multi_view_active_learning_tpu_torch import parallel
     try:
         workflow.main(["--config_file", sys.argv[1], "--device", "cpu"])
     except (ValueError, NotImplementedError) as e:
         print("RAISED", type(e).__name__, e)
+    print("MESH", parallel.make_mesh(-1, 2))
 """) % (REPO,)
 
 
 @pytest.mark.parametrize("how", ["data_axis", "view_axis"])
 def test_mesh_mismatch_raises_under_two_ranks(tree, tmp_path, how):
     path, _ = _write_cfg(str(tmp_path), how, tree, data_axis=4 if how == "data_axis" else -1,
-                         view_axis=2 if how == "view_axis" else 1)
+                         view_axis=4 if how == "view_axis" else 1)
     port = _free_port()
     procs = [subprocess.Popen([sys.executable, "-c", ERROR_SCRIPT, path], env=_rank_env(r, port),
                               cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -696,5 +699,7 @@ def test_mesh_mismatch_raises_under_two_ranks(tree, tmp_path, how):
         if how == "data_axis":
             assert "RAISED ValueError mesh 4x1 does not match 2 processes" in out, out[-3000:]
         else:
-            assert "RAISED NotImplementedError" in out and "A9b" in out, out[-3000:]
+            assert "RAISED ValueError view_axis (4) must divide the device count (2)" in out, \
+                out[-3000:]
+        assert "MESH Mesh(data=1, view=2)" in out, out[-3000:]
     assert parallel.process_count() == 1  # this process joined no group

@@ -439,7 +439,8 @@ def test_cli_needs_a_device_without_a_card(tree, tmp_path, monkeypatch):
 def test_more_than_one_process_raises_a9(tree, tmp_path, how):
     """A TPU.DATA_AXIS of 2 in a world of one process is a ValueError, as the
     JAX package's make_mesh raises for a mesh that does not match its
-    devices; TPU.VIEW_AXIS 2 (view sharding) raises naming A9b."""
+    devices; so is a TPU.VIEW_AXIS of 2 there (it must divide the world),
+    which makes the data x view grid of four processes."""
     path, _ = _write_cfg(str(tmp_path), "a9", "port", tree,
                          data_axis=2 if how == "world_size" else -1,
                          view_axis=2 if how == "view_axis" else 1)
@@ -453,5 +454,7 @@ def test_more_than_one_process_raises_a9(tree, tmp_path, how):
         assert parallel.initialize_distributed() is False and parallel.process_index() == 0
         assert parallel.broadcast_string("k", "v") == "v"
     else:
-        with pytest.raises(NotImplementedError, match="A9b"):
+        with pytest.raises(ValueError, match=r"view_axis \(2\) must divide the device count \(1\)"):
             workflow.main(["--config_file", path, "--device", "cpu"])
+        assert parallel.make_mesh(-1, 2, world=4) == parallel.Mesh(2, 2)
+        assert parallel.make_mesh(2, 2, world=4) == parallel.Mesh(2, 2)

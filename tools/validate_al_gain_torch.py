@@ -140,6 +140,7 @@ def run_one(args, tree: str, strategy: str, seed: int):
 def calibrate(args, tree: str) -> int:
     """Pool-viability check (see module docstring)."""
     from multi_view_active_learning_tpu_torch.data import build_dataset
+    from multi_view_active_learning_tpu_torch.device import use_deterministic_algorithms
     from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
 
     with open(os.path.join(tree, "meta.json")) as f:
@@ -150,6 +151,7 @@ def calibrate(args, tree: str) -> int:
         cfg.AL.STRATEGY = "TRIANGULATION"  # probe mirrors the scoring arm
         cfg.EXPR_NAME = "CALIB-%s" % tag
         strategy = ActiveLearningStrategy(cfg, device=args.device)
+        use_deterministic_algorithms(strategy.device)  # as workflow.run_experiment does
         train = build_dataset(cfg, "train")
         train.label_by_frame_guids(label_guids)
         val = build_dataset(cfg, "val")

@@ -70,6 +70,7 @@ def main(argv=None) -> int:
     from multi_view_active_learning_tpu_torch.config import get_default_configs
     from multi_view_active_learning_tpu_torch.data import build_dataset
     from multi_view_active_learning_tpu_torch.data.synthetic import generate_panoptic_tree
+    from multi_view_active_learning_tpu_torch.device import use_deterministic_algorithms
     from multi_view_active_learning_tpu_torch.strategy import ActiveLearningStrategy
     from multi_view_active_learning_tpu_torch.utils import checkpoint as ckpt
 
@@ -98,6 +99,7 @@ def main(argv=None) -> int:
     cfg.EXPR_NAME = "VALIDATE"
 
     strategy = ActiveLearningStrategy(cfg, device=args.device)
+    use_deterministic_algorithms(strategy.device)  # runs replay bit for bit on the card
     train = build_dataset(cfg, "train")
     val = build_dataset(cfg, "val")
     t0 = time.time()
