@@ -1674,6 +1674,34 @@ def _timed_sweep(strategy, pool, state):
     return time.perf_counter() - t0, sal
 
 
+def _with_spans(run):
+    """`run()` under a profiler session of the card's activity alone, as the
+    benchmark's traced window: (its result, the program's span records,
+    each with the synchronizing calls charged to it)."""
+    import torch
+    from multi_view_active_learning_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        out = run()
+    records = profiling.span_records()
+    profiling.clear_spans()
+    return out, records
+
+
+def _synced_spans(records, skip=()):
+    """The name of the span charged with each synchronizing call that
+    torch's sync debug mode flagged (``profiling.host_waits``' syncs),
+    leaving out the spans inside one named in `skip`."""
+    left_out, names = set(), []
+    for i, r in enumerate(records):  # a span opens after its parent
+        if r.name in skip or r.parent in left_out:
+            left_out.add(i)
+        else:
+            names += [r.name] * r.syncs
+    return names
+
+
 def _check_sweep(sal, frames, tag):
     check(len(sal["al_metric"]) == frames, "%s: %d frames scored of %d"
           % (tag, len(sal["al_metric"]), frames))
@@ -1695,15 +1723,15 @@ def phase_pool_sweep(dev, ctx, tmp):
     workers, started before the clock, and empty caches), a warm one (the
     launch counters set to 0 before it and read after: K1 once a batch;
     torch's sync debug mode must flag no synchronizing call in it; its
-    sal_dict is the cold one's), the warm loader alone, and bare
+    sal_dict is the cold one's; the synchronizing calls counted by the
+    program's spans on one more warm sweep, untimed, under a profiler
+    session), the warm loader alone, and bare
     score_steps on the same engine and frames already on the card (their
     outputs keyed by guid give the warm sweep's sal_dict); then
     sample_next_batch at iteration 0 (random) and 1 (TRIANGULATION under
     SAL), and a CORESET step (K2 launched once, and held to its plain
     version on that step's features and mask).  Decode workers must not
     have initialized CUDA."""
-    import warnings
-
     import torch
     from multi_view_active_learning_tpu_torch import kernels
     from multi_view_active_learning_tpu_torch.data import build_dataset, native, pipeline
@@ -1743,23 +1771,22 @@ def phase_pool_sweep(dev, ctx, tmp):
             cold_s, sal = _timed_sweep(strategy, pool, state)
             _check_sweep(sal, SWEEP_FRAMES, name + " cold sweep")
             kernels.reset_launch_counts()
-            with warnings.catch_warnings(record=True) as syncs:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    warm_s, warm = _timed_sweep(strategy, pool, state)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
+            warm_s, warm = _timed_sweep(strategy, pool, state)
             launches = kernels.launch_counts()
-            syncs = [str(w.message) for w in syncs
-                     if "called a synchronizing CUDA operation" in str(w.message)]
+            # The sync check on one more warm sweep, untimed: the profiler
+            # session's cost a launch stays out of warm_s.
+            spanned, records = _with_spans(lambda: strategy._compute_sal_dict(pool, state))
+            syncs = _synced_spans(records)
+            check(sum(r.name == "sweep.dispatch" for r in records) == batches,
+                  "%s warm sweep: spans %s" % (name, sorted({r.name for r in records})))
             _check_sweep(warm, SWEEP_FRAMES, name + " warm sweep")
+            _sal_dict_err(spanned, warm, name + " warm sweep under the profiler against warm")
             # The same engine on the same frames: the warm sweep (workers
             # and caches warm, four batches in flight) gives the cold one's
             # sal_dict.
             warm_cold_err = _sal_dict_err(warm, sal, name + " warm sweep against cold")
-            check(not syncs, "%s warm sweep: %d synchronizing calls, the first: %s"
-                  % (name, len(syncs), syncs[:1]))
+            check(not syncs, "%s warm sweep: %d synchronizing calls, in spans %s"
+                  % (name, len(syncs), sorted(set(syncs))))
             check(launches["fused_decode"] == batches,
                   "%s sweep: K1 launched %d times for %d batches"
                   % (name, launches["fused_decode"], batches))
@@ -1967,37 +1994,25 @@ def _train_cfg(tree, log_dir, name, **options):
 
 
 class _TrainSpy:
-    """Wraps a strategy's train_step and _device_batch: keeps every step's
-    loss and skip flag on the card (nothing is fetched), and turns torch's
-    sync debug mode on from a batch's preparation to the end of its step,
-    except for the steps a log point follows."""
+    """Wraps a strategy's train_step: keeps every step's loss and skip flag
+    on the card (nothing is fetched)."""
 
-    def __init__(self, strategy, log_every):
-        import torch
-
+    def __init__(self, strategy):
         self.steps, self.losses, self.skipped = 0, [], []
-        engine_step, device_batch = strategy.engine.train_step, strategy._device_batch
+        engine_step = strategy.engine.train_step
 
         def train_step(state, *args):
             state, metrics = engine_step(state, *args)
             self.steps += 1
             self.losses.append(metrics["loss"])
             self.skipped.append(metrics["skipped"])
-            if self.steps % log_every == 0:
-                torch.cuda.set_sync_debug_mode(0)
             return state, metrics
 
-        def prepare(batch, train, key=None):
-            if train:
-                torch.cuda.set_sync_debug_mode("warn")
-            return device_batch(batch, train, key)
-
         strategy.engine.train_step = train_step
-        strategy._device_batch = prepare
         self._strategy = strategy
 
     def remove(self):
-        del self._strategy.engine.train_step, self._strategy._device_batch
+        del self._strategy.engine.train_step
 
 
 def _ckpt_steps(cfg):
@@ -2010,7 +2025,11 @@ def phase_train(dev, tree, tmp):
     (b) `run_fully_supervised_training` at full width on the pool sweep's
     tree: every loss finite and no step skipped, K1 launched once per eval
     batch (two log points), CKPT-E10 / CKPT-E20 / CKPT-FINAL written, no
-    synchronizing call flagged between log points; a run resumed from
+    synchronizing call flagged between log points (the program's spans
+    under a profiler session, so `run_s` includes the session's cost a
+    launch: none charged to a span inside ``train`` outside its
+    ``train.log_point`` spans, and at most one to ``train`` itself, whose
+    start reads the state's step); a run resumed from
     CKPT-E10 (TRAIN.RESTORE_FROM) reaches the uninterrupted run's step-20
     weights within RESUME_PARAM_TOL; after training the strategy's engine
     scores a batch as a new Engine loaded with the trained weights does
@@ -2041,22 +2060,23 @@ def phase_train(dev, tree, tmp):
     check(strategy.device.type == "cuda", "training on %s" % strategy.device)
     state0 = strategy.new_state()
     init_weights = {k: v.clone() for k, v in state0.state_dict().items()}
-    spy = _TrainSpy(strategy, TRAIN_LOG_EVERY)
+    spy = _TrainSpy(strategy)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        try:
-            state = strategy.run_fully_supervised_training(
-                state0, build_dataset(cfg, "train"), build_dataset(cfg, "val"))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            spy.remove()
+    try:
+        state, records = _with_spans(lambda: strategy.run_fully_supervised_training(
+            state0, build_dataset(cfg, "train"), build_dataset(cfg, "val")))
+    finally:
+        spy.remove()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    syncs = [str(w.message) for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
+    syncs = _synced_spans(records, skip=("train.log_point",))
+    own = syncs.count("train")  # the start's read of state.step
+    syncs = [n for n in syncs if n != "train"]
+    check(sum(r.name == "train.step" for r in records) == TRAIN_STEPS
+          and sum(r.name == "train.log_point" for r in records) == TRAIN_STEPS // TRAIN_LOG_EVERY,
+          "training spans %s" % sorted({r.name for r in records}))
     losses = torch.stack(spy.losses).float().cpu()
     skipped = int(torch.stack(spy.skipped).sum())
     check(spy.steps == TRAIN_STEPS and int(state.step) == TRAIN_STEPS,
@@ -2066,8 +2086,8 @@ def phase_train(dev, tree, tmp):
     eval_batches = -(-TRAIN_VAL_FRAMES // TRAIN_BATCH) * (TRAIN_STEPS // TRAIN_LOG_EVERY)
     check(launches["fused_decode"] == eval_batches,
           "K1 launched %d times for %d eval batches" % (launches["fused_decode"], eval_batches))
-    check(not syncs, "%d synchronizing calls between log points, the first: %s"
-          % (len(syncs), syncs[:1]))
+    check(not syncs and own <= 1, "%d synchronizing calls between log points, in spans %s; "
+          "%d charged to train itself" % (len(syncs), sorted(set(syncs)), own))
     ckpt_dir, names = _ckpt_steps(cfg)
     e10 = [n for n in names if n.startswith("CKPT-E%d-MKPE" % TRAIN_LOG_EVERY)]
     check(len(e10) == 1 and any(n.startswith("CKPT-E%d-MKPE" % TRAIN_STEPS) for n in names)
@@ -2449,8 +2469,6 @@ def phase_workflow(dev, tree, tmp):
     augmented batch on the card against the CPU; the augmented train step
     beside the plain one.  (c) AL.STRATEGY=CORESET at (a)'s depth on
     PoseResNet-50 bf16: K2 launched once, in iteration 1."""
-    import warnings
-
     import torch
     from multi_view_active_learning_tpu_torch import kernels
     from multi_view_active_learning_tpu_torch.data import build_dataset, pipeline
@@ -2507,19 +2525,15 @@ def phase_workflow(dev, tree, tmp):
         pool.resample_unlabeled_data()
         cold_s, _ = _timed_sweep(strategy, pool, state)
         kernels.reset_launch_counts()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                warm_s, warm = _timed_sweep(strategy, pool, state)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = [str(w.message) for w in caught
-                 if "called a synchronizing CUDA operation" in str(w.message)]
+        warm_s, warm = _timed_sweep(strategy, pool, state)
         warm_k1 = kernels.launch_counts()["fused_decode"]
+        spanned, records = _with_spans(lambda: strategy._compute_sal_dict(pool, state))
+        syncs = _synced_spans(records)
         left = SWEEP_FRAMES - WF_AL
         _check_sweep(warm, left, "iteration 1 warm sweep")
-        check(not syncs, "warm sweep: %d synchronizing calls, the first: %s" % (len(syncs), syncs[:1]))
+        _sal_dict_err(spanned, warm, "iteration 1 warm sweep under the profiler against warm")
+        check(not syncs, "warm sweep: %d synchronizing calls, in spans %s"
+              % (len(syncs), sorted(set(syncs))))
         check(warm_k1 == -(-left // cfg.AL.INFERENCE.BATCH_SIZE), "warm sweep K1 %d" % warm_k1)
         hrnet_step, _ = _timed_train_steps(
             strategy, strategy.new_state(), lambda b: strategy._device_batch(b, train=True))

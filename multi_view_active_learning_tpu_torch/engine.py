@@ -77,7 +77,7 @@ from .ops import heatmap as heatmap_ops
 from .ops.image import space_to_depth
 from .ops import triangulate as tri
 from .ops import uncertainty
-from .utils import prng
+from .utils import prng, profiling
 
 SCORING_STRATEGIES = ("TRIANGULATION", "RANDOM", "CORESET", "MPE", "HP", "BSB")
 
@@ -408,17 +408,19 @@ class Engine:
 
         leaves = {n: state.params[n].detach().requires_grad_() for n in self.param_names}
         with self._bound_model(leaves, group):
-            out = self.model(x)  # [B*V, K, h, w] float32
-            loss = torch.zeros((), dtype=torch.float32, device=self.device)
-            if loss_type in ("MSE", "MSE+INTEGRAL"):
-                loss = heatmap_ops.heatmap_mse_loss(out, gt, mask,
-                                                    num_samples=torch.clamp(n_valid_crops, min=1.0))
-            if integral:
-                weight = self.cfg.TRAIN.INTEGRAL_WEIGHT if loss_type == "MSE+INTEGRAL" else 1.0
-                loss = loss + weight * heatmap_ops.integral_regression_loss(
-                    out, gt, mask[:, :, 0, 0], beta=self.cfg.TRAIN.INTEGRAL_BETA,
-                    num_valid=counts[1])
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with profiling.span("engine.forward"):
+                out = self.model(x)  # [B*V, K, h, w] float32
+                loss = torch.zeros((), dtype=torch.float32, device=self.device)
+                if loss_type in ("MSE", "MSE+INTEGRAL"):
+                    loss = heatmap_ops.heatmap_mse_loss(
+                        out, gt, mask, num_samples=torch.clamp(n_valid_crops, min=1.0))
+                if integral:
+                    weight = self.cfg.TRAIN.INTEGRAL_WEIGHT if loss_type == "MSE+INTEGRAL" else 1.0
+                    loss = loss + weight * heatmap_ops.integral_regression_loss(
+                        out, gt, mask[:, :, 0, 0], beta=self.cfg.TRAIN.INTEGRAL_BETA,
+                        num_valid=counts[1])
+            with profiling.span("engine.backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), grads, out[0].detach(), n_valid_crops, group
 
     def loss_and_grads(self, state: TrainState, images, gt_heatmaps, per_view_joint_valid,
@@ -454,7 +456,7 @@ class Engine:
         if missing:
             raise RuntimeError("batch norms without batch statistics: %s" % missing[:4])
 
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("engine.update"):
             lr = self.lr_schedule(state.step)
             # The gradient exchange, a SUM (each rank's gradient is its
             # share's, not a mean over ranks), with the loss in the same

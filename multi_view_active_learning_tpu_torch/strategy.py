@@ -21,6 +21,12 @@ is not a multiple of it) ``_evaluate_all`` (``eval_step``, K1 on every
 batch), checkpoints ``CKPT-E<step>-MKPE<mkpe>`` and ``CKPT-FINAL``
 (utils/checkpoint.py) and the metrics writer's records.
 
+Both loops mark their host work with ``utils.profiling`` spans (``sweep``,
+``sweep.loader_wait`` / ``prepare`` / ``int8_calibrate`` / ``dispatch`` /
+``collect``, ``fetch_wait``; ``train``, ``train.loader_wait`` / ``prepare``
+/ ``step`` / ``log_point`` / ``records``, ``evaluate``, ``checkpoint``),
+which record only under a ``torch.profiler`` session.
+
 ``state`` is an ``engine.TrainState`` (``new_state``, or what ``_train``
 returns) or a reference-named torch state dict (``models.convert.
 from_flax``'s output, or a checkpoint's); the engine's inference weights
@@ -224,8 +230,9 @@ class ActiveLearningStrategy:
 
         def finish(item):
             meta, host, event = item
-            if event is not None:
-                event.synchronize()
+            with profiling.span("fetch_wait"):
+                if event is not None:
+                    profiling.wait(event)
             return meta, {name: value.numpy() for name, value in host.items()}
 
         for meta, tree in dispatched:
@@ -433,6 +440,7 @@ class ActiveLearningStrategy:
                                                        sal_dict["pred_3d_keypoints"])
         return al_guids, sal_sampled_guids, sal_dict
 
+    @profiling.spanned("sweep")
     def _compute_sal_dict(self, pool, state, iteration: int = 0) -> Dict:
         """Score the whole unlabeled pool (reference: strategy.py:1004-1147):
         one score_step a fixed-shape batch, the host keying the results by
@@ -474,44 +482,38 @@ class ActiveLearningStrategy:
 
         def _dispatched():
             nonlocal key, int8_scales
-            for index, batch in enumerate(loader):
+            for index, batch in enumerate(profiling.span_each("sweep.loader_wait", loader)):
                 key, skey = prng.split(key)
-                images = self._device_images(batch)
+                with profiling.span("sweep.prepare"):
+                    images = self._device_images(batch)
+                    proj = self._put(batch["proj_matrices"])
+                    valid = self._put(batch["joint_valid"])
+                    gt = self._put(batch["3d_keypoints"])
                 if int8_scales is None:
                     # One-batch activation calibration (None when the int8
                     # backbone is off).
-                    int8_scales = self.engine.int8_calibrate(images)
-                out = self.engine.score_step(
-                    images,
-                    self._put(batch["proj_matrices"]),
-                    self._put(batch["joint_valid"]),
-                    pairs,
-                    self._put(batch["3d_keypoints"]),
-                    al_strategy=cfg.AL.STRATEGY,
-                    key=skey,
-                    int8_scales=int8_scales,
-                    mpe_aggregate=cfg.AL.MPE_CONFIG,
-                    hp_aggregate=cfg.AL.HP_CONFIG,
-                    bsb_aggregate=cfg.AL.BSB_CONFIG,
-                )
+                    with profiling.span("sweep.int8_calibrate"):
+                        int8_scales = self.engine.int8_calibrate(images)
+                with profiling.span("sweep.dispatch"):
+                    out = self.engine.score_step(
+                        images,
+                        proj,
+                        valid,
+                        pairs,
+                        gt,
+                        al_strategy=cfg.AL.STRATEGY,
+                        key=skey,
+                        int8_scales=int8_scales,
+                        mpe_aggregate=cfg.AL.MPE_CONFIG,
+                        hp_aggregate=cfg.AL.HP_CONFIG,
+                        bsb_aggregate=cfg.AL.BSB_CONFIG,
+                    )
                 yield self._batch_keys(loader, index, batch), out
 
         try:
             for (guids, frame_valid), out in self._pipelined_fetch(_dispatched()):
-                for i, guid in enumerate(guids):
-                    if not frame_valid[i]:
-                        continue
-                    sal_dict["sal_metric"][guid] = float(out["sal_metric"][i])
-                    sal_dict["inlier_count"][guid] = float(out["inlier_count"][i])
-                    sal_dict["pred_3d_keypoints"][guid] = out["keypoints_3d"][i].tolist()
-                    sal_dict["al_metric"][guid] = float(out["al_metric"][i])
-                    sal_dict["mkpe"][guid] = float(out["mkpe"][i])
-                    if "embedding" in out:
-                        # CORESET with EMBEDDING features; popped before the
-                        # sal_dict is written out.
-                        sal_dict.setdefault("embedding", OrderedDict())[guid] = np.asarray(
-                            out["embedding"][i], np.float32)
-                    n_frames += 1
+                with profiling.span("sweep.collect"):
+                    n_frames += self._collect(sal_dict, guids, frame_valid, out)
                 progress.tick(int(np.sum(frame_valid)))
         finally:
             loader.close()  # releases the decode pool's liveness ref
@@ -526,6 +528,28 @@ class ActiveLearningStrategy:
                                               stats["bytes_in_use_gib"], iteration)
         return sal_dict
 
+    @staticmethod
+    def _collect(sal_dict, guids, frame_valid, out) -> int:
+        """Keys one batch's fetched outputs into `sal_dict` by guid; the
+        number of its valid frames."""
+        n_frames = 0
+        for i, guid in enumerate(guids):
+            if not frame_valid[i]:
+                continue
+            sal_dict["sal_metric"][guid] = float(out["sal_metric"][i])
+            sal_dict["inlier_count"][guid] = float(out["inlier_count"][i])
+            sal_dict["pred_3d_keypoints"][guid] = out["keypoints_3d"][i].tolist()
+            sal_dict["al_metric"][guid] = float(out["al_metric"][i])
+            sal_dict["mkpe"][guid] = float(out["mkpe"][i])
+            if "embedding" in out:
+                # CORESET with EMBEDDING features; popped before the
+                # sal_dict is written out.
+                sal_dict.setdefault("embedding", OrderedDict())[guid] = np.asarray(
+                    out["embedding"][i], np.float32)
+            n_frames += 1
+        return n_frames
+
+    @profiling.spanned("embed")
     def _embed_labeled(self, train_pool, state) -> "OrderedDict[str, np.ndarray]":
         """Pooled trunk embeddings of the LABELED set, keyed by guid: the
         centers already covered, for AL.CORESET_FEATURES=EMBEDDING.  One
@@ -599,6 +623,7 @@ class ActiveLearningStrategy:
         self._logger.info("Training from scratch.")
         return state
 
+    @profiling.spanned("checkpoint")
     def _save_point(self, checkpoints_dir, state, epoch, step, mkpe, lr=None) -> None:
         """The step-named checkpoint and the rolling CKPT-FINAL, written by
         rank 0 (``ckpt.save_checkpoints``), then a barrier (JAX :940, :981):
@@ -609,6 +634,7 @@ class ActiveLearningStrategy:
              os.path.join(checkpoints_dir, "CKPT-FINAL")], state, epoch, lr)
         parallel.process_barrier("ckpt/%s/%d" % (checkpoints_dir, step))
 
+    @profiling.spanned("train")
     def _train(self, iteration_idx, train_cfg, train_pool, val_pool, state):
         """The training loop (reference: strategy.py:422-546; JAX
         strategy.py:806-992).  Returns the trained state."""
@@ -633,54 +659,46 @@ class ActiveLearningStrategy:
             # per-step fetch would make every step wait for the card.
             skip_sum = torch.zeros((), dtype=torch.int64, device=self.device)
             t_start, steps_timed = time.time(), 0
-            step_timer = profiling.StepTimer()
+            step_timer = profiling.StepTimer(device=self.device)
             while global_step < total_steps:
                 epoch += 1
                 batches_this_epoch = 0
-                for batch in train_loader:
+                for batch in profiling.span_each("train.loader_wait", train_loader):
                     batches_this_epoch += 1
                     key, bkey = prng.split(key)
-                    images, gt_heat = self._device_batch(batch, train=True, key=bkey)
-                    state, metrics = self.engine.train_step(
-                        state, images, gt_heat, self._put(batch["per_view_joint_valid"]),
-                        self._put(batch["frame_valid"]))
+                    with profiling.span("train.prepare"):
+                        images, gt_heat = self._device_batch(batch, train=True, key=bkey)
+                        per_view_joint_valid = self._put(batch["per_view_joint_valid"])
+                        frame_valid = self._put(batch["frame_valid"])
+                    with profiling.span("train.step"):
+                        state, metrics = self.engine.train_step(
+                            state, images, gt_heat, per_view_joint_valid, frame_valid)
                     global_step += 1
                     steps_timed += 1
                     step_timer.tick()
                     skip_sum = skip_sum + metrics["skipped"]
                     if global_step % log_every == 0:
-                        # The training window's rate, before the log point's work.
-                        steps_per_sec = steps_timed / max(time.time() - t_start, 1e-9)
-                        last_loss = float(metrics["loss"])
-                        lr = float(metrics["lr"])
-                        skips = int(skip_sum)
-                        if skips:
-                            self._logger.warning(
-                                "%d steps skipped so far (non-finite or clipped loss)." % skips)
-                        eval_results = self._evaluate_all(iteration_idx, state, val_loader)
-                        self._save_point(checkpoints_dir, state, epoch, global_step,
-                                         eval_results["mkpe"], lr)
-                        writer.add_scalar("lr", lr, global_step)
-                        writer.add_scalar("3D MKPE", eval_results["mkpe"], global_step)
-                        writer.add_scalar("loss/train", last_loss, global_step)
-                        writer.add_pck_curves("3DPCK", global_step, eval_results["thresholds"],
-                                              eval_results["pcks"])
-                        if "pckh_thresholds" in eval_results:
-                            writer.add_pck_curves("3DPCKH", global_step,
-                                                  eval_results["pckh_thresholds"],
-                                                  eval_results["pckh_pcks"])
-                        writer.add_scalar("steps_per_sec", steps_per_sec, global_step)
-                        if parallel.is_main():  # rank 0's first crop, rendered where it is kept
-                            self._log_train_figures(writer, metrics["first_heatmap"], images,
-                                                    gt_heat, global_step)
-                        for k, v in step_timer.summary().items():
-                            writer.add_scalar("perf/%s" % k, v, global_step)
-                        for dev, stats in profiling.device_memory_stats().items():
-                            writer.add_scalar("hbm/%s/bytes_in_use_gib" % dev,
-                                              stats["bytes_in_use_gib"], global_step)
-                        self._logger.info(
-                            "[EPOCH %d][STEP %d] loss %.4f mkpe %.2f (%.2f steps/s)"
-                            % (epoch, global_step, last_loss, eval_results["mkpe"], steps_per_sec))
+                        with profiling.span("train.log_point"):
+                            with profiling.span("train.records"):
+                                # The training window's rate, before the log point's work.
+                                steps_per_sec = steps_timed / max(time.time() - t_start, 1e-9)
+                                last_loss = float(metrics["loss"])
+                                lr = float(metrics["lr"])
+                                skips = int(skip_sum)
+                            if skips:
+                                self._logger.warning(
+                                    "%d steps skipped so far (non-finite or clipped loss)." % skips)
+                            eval_results = self._evaluate_all(iteration_idx, state, val_loader)
+                            self._save_point(checkpoints_dir, state, epoch, global_step,
+                                             eval_results["mkpe"], lr)
+                            with profiling.span("train.records"):
+                                self._write_train_records(
+                                    writer, global_step, lr, last_loss, eval_results,
+                                    steps_per_sec, step_timer, metrics, images, gt_heat)
+                            self._logger.info(
+                                "[EPOCH %d][STEP %d] loss %.4f mkpe %.2f (%.2f steps/s)"
+                                % (epoch, global_step, last_loss, eval_results["mkpe"],
+                                   steps_per_sec))
                         t_start, steps_timed = time.time(), 0
                     if global_step >= total_steps:
                         break
@@ -694,16 +712,37 @@ class ActiveLearningStrategy:
                 # reference saves at log points only and so drops the last
                 # steps from CKPT-FINAL, which the next AL iteration reads;
                 # the end of training is saved here instead.
-                eval_results = self._evaluate_all(iteration_idx, state, val_loader)
-                self._save_point(checkpoints_dir, state, epoch, global_step, eval_results["mkpe"])
-                writer.add_scalar("3D MKPE", eval_results["mkpe"], global_step)
-                self._logger.info("[FINAL][STEP %d] mkpe %.2f — end-of-training checkpoint saved."
-                                  % (global_step, eval_results["mkpe"]))
+                with profiling.span("train.log_point"):
+                    eval_results = self._evaluate_all(iteration_idx, state, val_loader)
+                    self._save_point(checkpoints_dir, state, epoch, global_step,
+                                     eval_results["mkpe"])
+                    with profiling.span("train.records"):
+                        writer.add_scalar("3D MKPE", eval_results["mkpe"], global_step)
+                    self._logger.info("[FINAL][STEP %d] mkpe %.2f — end-of-training checkpoint "
+                                      "saved." % (global_step, eval_results["mkpe"]))
         finally:
             train_loader.close()  # the decode pool's references, also on a failure
             val_loader.close()
         writer.close()
         return state
+
+    def _write_train_records(self, writer, step, lr, loss, eval_results, steps_per_sec,
+                             step_timer, metrics, images, gt_heat) -> None:
+        """The metrics writer's records of a training log point."""
+        writer.add_scalar("lr", lr, step)
+        writer.add_scalar("3D MKPE", eval_results["mkpe"], step)
+        writer.add_scalar("loss/train", loss, step)
+        writer.add_pck_curves("3DPCK", step, eval_results["thresholds"], eval_results["pcks"])
+        if "pckh_thresholds" in eval_results:
+            writer.add_pck_curves("3DPCKH", step, eval_results["pckh_thresholds"],
+                                  eval_results["pckh_pcks"])
+        writer.add_scalar("steps_per_sec", steps_per_sec, step)
+        if parallel.is_main():  # rank 0's first crop, rendered where it is kept
+            self._log_train_figures(writer, metrics["first_heatmap"], images, gt_heat, step)
+        for k, v in step_timer.summary().items():
+            writer.add_scalar("perf/%s" % k, v, step)
+        for dev, stats in profiling.device_memory_stats().items():
+            writer.add_scalar("hbm/%s/bytes_in_use_gib" % dev, stats["bytes_in_use_gib"], step)
 
     def _log_train_figures(self, writer, first_heatmap, images, gt_heat, step):
         """The predicted against the GT heatmaps and a 2D keypoint overlay of
@@ -728,6 +767,7 @@ class ActiveLearningStrategy:
 
     # ------------------------------------------------------------- evaluation
 
+    @profiling.spanned("evaluate")
     def _evaluate_all(self, iteration_idx, state, val_loader) -> Dict:
         """3D MKPE and PCK (and PCKh) over the validation loader (reference:
         strategy.py:584-649): eval_step a batch (K1 decodes its heatmaps),
