@@ -9,8 +9,9 @@ card (K1 decode at bench width and on its ragged, misaligned and one-row
 shapes; K2 coreset distance on the bench pool, its edge cases, feature
 widths 1 to 2048 (bit for bit on exact grids at 512, 2047 and 2048), a
 16384-row pool and the 2048 x 2048 EMBEDDING pool; K3 / K4 fused deconv head
-at the head's three bench-width shapes), checks the card's int8
-convolutions against the CPU's, PoseResNet-50 and HRNet-W32 against the
+at the head's three bench-width shapes; K5, the int8 conv unit, bit for bit
+at every conv of PoseResNet-50 and HRNet-W32 at the sweep's 16 x 31 crops,
+timed at PoseResNet-50's), PoseResNet-50 and HRNet-W32 against the
 stored forward goldens and a full-width triangulation against ground truth,
 then drives the active-learning scoring pass at the width of ``bench.py``
 (B=4 frames, V=31 views, 256x256 crops, K=19 joints, 64 RANSAC pairs)
@@ -30,8 +31,9 @@ pool with decode workers prints cold, warm and bare-step frames/s, holds
 the warm sweep's sal_dict to the cold one's and to the bare steps', and K2
 to its plain version on a full-width CORESET step's own features.  The
 kernels' launch counters are set to 0 before each path and read after it;
-the ``kernels`` line also gives K1's launches in a warm sweep and K2's in
-the full-width CORESET step (``sweep_launches``).  Then training
+the ``kernels`` line also gives K1's and K5's launches in a warm sweep
+(K5 53 a forward, and no ``torch._int_mm`` call) and K2's in the
+full-width CORESET step (``sweep_launches``).  Then training
 (``phase_train``) and the CLI (``phase_workflow``: ``workflow.main`` on the
 card for the sample config's HRNet-W32 SAL experiment cut in depth,
 PoseResNet-50 SUPERVISED with RandAugment and CLUSTER, and a CORESET run;
@@ -58,15 +60,16 @@ B=1 are exported with ``torch.export`` at full width, then loaded and
 called at B=1 and 4 in a fresh process (``chip_smoke.py --serve-load``)
 that refuses JAX and the port's engine, models and config; their outputs
 are held to the eager serve function's and each call's launches are
-counted there (K1 once, K3 / K4 three times: the ``kernels`` line's
-``serving_launches``); tools/bench_serving_torch.py then times the bf16
+counted there (K1 once, K3 / K4 three times, K5 53 times in the int8
+artifacts: the ``kernels`` line's ``serving_launches``); tools/bench_serving_torch.py then times the bf16
 and int8 artifacts.  Last, the tools that show the port learns
 (``phase_learning``): tools/validate_learning_torch.py at its defaults
 with --int8_compare must print VALIDATION PASSED.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises and exits
+``{"ok": true, "device": {...}}``.  ``chip_smoke.py --phase k5 [k1 ...]``
+runs the build and the named kernel phases alone.  Any failed check raises and exits
 nonzero; without a CUDA device it exits nonzero and prints no result.
 Before the last lines, and on any failure, it stops every process it
 started (decode workers, their forkserver, multiprocessing's resource
@@ -784,31 +787,188 @@ def phase_k4(dev, flush):
     return row
 
 
-def phase_int8_conv(dev):
-    """The int8 backbone's s8 im2col products (torch._int_mm) on the card
-    against the CPU's: the stem and two 3x3 convs of PoseResNet-50 on 4
-    crops; the s32 accumulators must be bit-equal."""
+# K5 at the main path's width: the sweep's scoring batch (16 frames x 31
+# views) of 256x256 crops.
+K5_CROPS = 16 * VIEWS
+
+
+def _k5_units(model, crops):
+    """Every K5 unit one int8 forward of `model` ("POSE_RESNET": PoseResNet-50,
+    "HRNET": HRNet-W32) makes on [crops, IMG, IMG, 3], in order, as (n, h, w,
+    cin, cout, k, stride, pad, relu, residual): from a forward on meta
+    tensors with the unit replaced by a recorder."""
     import torch
+    from multi_view_active_learning_tpu_torch.kernels import int8_conv
+    from multi_view_active_learning_tpu_torch.models import PoseHighResolutionNet, PoseResNet
     from multi_view_active_learning_tpu_torch.models import quantize
 
-    gen = torch.Generator().manual_seed(5)
-    convs = {  # name: (input NHWC, Conv2d weight, stride)
-        "stem": ((4, IMG, IMG, 3), (64, 3, 7, 7), 2),
-        "layer1_0/conv2": ((4, IMG // 4, IMG // 4, 64), (64, 64, 3, 3), 1),
-        "layer2_0/conv2": ((4, IMG // 4, IMG // 4, 128), (128, 128, 3, 3), 2),
-    }
-    shapes = {}
-    for name, (xshape, wshape, stride) in convs.items():
-        x = torch.randn(xshape, generator=gen).to(torch.bfloat16)
-        wq, _ = quantize._quant_weight(torch.randn(wshape, generator=gen))
-        wq = wq.permute(0, 2, 3, 1).contiguous()
-        xq = quantize._quant_act(x, torch.amax(torch.abs(x.float())) / 127.0)
-        cpu = quantize._int8_conv(xq, wq, stride)
-        card = quantize._int8_conv(xq.to(dev), wq.to(dev), stride)
-        torch.cuda.synchronize()
-        check(torch.equal(card.cpu(), cpu), "int8 conv %s: card and CPU s32 sums differ" % name)
-        shapes[name] = list(cpu.shape)
-    emit("int8_conv", bit_equal=True, s32_shapes=shapes)
+    seen = []
+
+    def record(x, wq, ws, scale, bias, act_scale, residual=None, stride=1, pad=None, relu=True):
+        k = wq.shape[1]
+        pad = (k // 2, k // 2) if pad is None else tuple(pad)
+        seen.append((*x.shape, wq.shape[0], k, stride, pad, relu, residual is not None))
+        ho, wo = int8_conv.out_hw(x.shape[1], x.shape[2], k, stride, pad)
+        return torch.empty((x.shape[0], ho, wo, wq.shape[0]), dtype=torch.bfloat16, device="meta")
+
+    net = PoseResNet(JOINTS, DEPTH) if model == "POSE_RESNET" else PoseHighResolutionNet(JOINTS)
+    sd = {k: v.to("meta") for k, v in net.state_dict().items()}
+    x = torch.empty((crops, IMG, IMG, 3), device="meta")
+    real = int8_conv.int8_conv_bn
+    int8_conv.int8_conv_bn = record
+    try:
+        if model == "POSE_RESNET":
+            quantize.quantized_pose_resnet_forward(quantize.quantize_state_dict(sd, DEPTH), x, DEPTH)
+        else:
+            qp = quantize.quantize_state_dict(sd, 0, model_type="HRNET")
+            quantize.quantized_hrnet_forward(qp, x, *net.stage_configs)
+    finally:
+        int8_conv.int8_conv_bn = real
+    return seen
+
+
+def _k5_operands(unit, dev, seed):
+    """Seeded operands of one unit on the card: x bf16 about unit scale, s8
+    weights, per-Cout scales, the folded BN, a residual."""
+    import torch
+    from multi_view_active_learning_tpu_torch.kernels import int8_conv
+
+    n, h, w, cin, cout, k, stride, pad, _, _ = unit
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (cout, k, k, cin), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand(cout, generator=g, device=dev) * 1e-3 + 1e-4
+    scale = torch.rand(cout, generator=g, device=dev) + 0.5
+    bias = torch.randn(cout, generator=g, device=dev) * 0.1
+    ho, wo = int8_conv.out_hw(h, w, k, stride, pad)
+    res = torch.randn((n, ho, wo, cout), generator=g, device=dev).to(torch.bfloat16)
+    return x, wq, ws, scale, bias, res
+
+
+def _k5_bound(unit):
+    """(bytes-bound ms, operations-bound ms) of one unit: x read once in
+    bf16, the s8 weights once, the bf16 output written once, the residual
+    read once; k*k*Cin*Cout multiply-adds an output pixel."""
+    from multi_view_active_learning_tpu_torch.kernels import int8_conv
+
+    n, h, w, cin, cout, k, stride, pad, _, residual = unit
+    ho, wo = int8_conv.out_hw(h, w, k, stride, pad)
+    nbytes = 2 * n * h * w * cin + cout * k * k * cin + 2 * n * ho * wo * cout * (2 if residual else 1)
+    ops = 2 * n * ho * wo * k * k * cin * cout
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+
+
+def phase_k5(dev, flush):
+    """K5 (kernels/int8_conv.py) against its plain twin on the card, bit for
+    bit on the bf16 output, at every conv unit of PoseResNet-50 and at each
+    distinct unit of HRNet-W32 at the sweep's batch (16 x 31 crops of
+    256x256), with a dynamic scale (max|x| / 127 on the card) and a static
+    one that clips, with and without a residual.  Timed at PoseResNet-50's
+    units (a forward's 53, repeats counted): `ms` the unit (its pre-pass
+    and product), `plain_ms` the twin, `library_ms` the twin's
+    torch._int_mm products alone; the bound from bytes and operations.  A
+    forward at static and dynamic scales makes no synchronizing call."""
+    import torch
+    from multi_view_active_learning_tpu_torch import kernels
+    from multi_view_active_learning_tpu_torch.kernels import int8_conv
+    from multi_view_active_learning_tpu_torch.ops.int8 import int8_matmul
+
+    t_phase = time.perf_counter()
+    resnet = _k5_units("POSE_RESNET", K5_CROPS)
+    hrnet = _k5_units("HRNET", K5_CROPS)
+    check(len(resnet) == 53, "PoseResNet-50 makes %d units, want 53" % len(resnet))
+    checked, mismatched = 0, {}
+    for model, units in (("POSE_RESNET", resnet), ("HRNET", hrnet)):
+        for idx, unit in enumerate(sorted(set(units))):
+            x, wq, ws, scale, bias, res = _k5_operands(unit, dev, 50 + idx)
+            n, h, w, cin, cout, k, stride, pad, relu, _ = unit
+            dynamic = torch.amax(torch.abs(x.float())) / 127.0
+            static = torch.tensor(0.012, device=dev)  # clips: max|x| is about 5
+            for sx in (dynamic, static):
+                for r in (None, res):
+                    got = int8_conv.int8_conv_bn(x, wq, ws, scale, bias, sx, r, stride, pad, relu)
+                    ref = int8_conv.int8_conv_bn_plain(x, wq, ws, scale, bias, sx, r, stride, pad,
+                                                       relu)
+                    torch.cuda.synchronize()
+                    checked += 1
+                    if not torch.equal(got, ref):
+                        mismatched["%s %s %s %s" % (model, unit, "dynamic" if sx is dynamic
+                                                    else "static", r is not None)] = int(
+                            torch.sum(got != ref))
+            del x, wq, ws, scale, bias, res, got, ref
+        torch.cuda.empty_cache()
+    check(not mismatched, "K5 differs from its twin: %s" % mismatched)
+    x, wq, ws, scale, bias, _ = _k5_operands(resnet[1], dev, 49)
+    empty = int8_conv.int8_conv_bn(x[:0], wq, ws, scale, bias, torch.tensor(0.02, device=dev))
+    check(tuple(empty.shape) == (0,) + tuple(x.shape[1:3]) + (wq.shape[0],),
+          "K5 on an empty batch: %s" % (tuple(empty.shape),))
+    del x, wq, ws, scale, bias, empty
+
+    # Times at PoseResNet-50's units, each distinct shape once, weighted by
+    # how often a forward runs it.
+    per_shape = []
+    for idx, unit in enumerate(sorted(set(resnet), key=resnet.index)):
+        x, wq, ws, scale, bias, res = _k5_operands(unit, dev, 90 + idx)
+        n, h, w, cin, cout, k, stride, pad, relu, residual = unit
+        r = res if residual else None
+        sx = torch.amax(torch.abs(x.float())) / 127.0
+        cols = int8_conv.im2col(int8_conv.quant_act(x, sx), k, stride, pad)
+        a = cols.reshape(-1, cols.shape[-1])
+        b = wq.reshape(cout, -1)
+        b_bytes, b_ops = _k5_bound(unit)
+        entry = dict(
+            unit=list(unit[:5]) + [k, stride, list(pad), relu, residual], count=resnet.count(unit),
+            plan=dict(tile_n=int8_conv.tile_n_for(cout),
+                      tiles=int8_conv.conv_plan(n, h, w, cin, cout, k, stride, pad[0], pad[1],
+                                                relu).tiles),
+            ms=cuda_ms(lambda: int8_conv.int8_conv_bn(x, wq, ws, scale, bias, sx, r, stride, pad,
+                                                      relu), 10, flush),
+            plain_ms=cuda_ms(lambda: int8_conv.int8_conv_bn_plain(x, wq, ws, scale, bias, sx, r,
+                                                                  stride, pad, relu), 3, flush),
+            library_ms=cuda_ms(lambda: int8_matmul(a, b), 3, flush),
+            bound_bytes_ms=b_bytes, bound_ops_ms=b_ops)
+        entry["share_of_bound"] = _share(entry)
+        per_shape.append(entry)
+        del x, wq, ws, scale, bias, res, cols, a, b
+    torch.cuda.empty_cache()
+
+    def total(key):
+        return sum(e[key] * e["count"] for e in per_shape)
+
+    bytes_ms, ops_ms = total("bound_bytes_ms"), total("bound_ops_ms")
+    bound_ms = sum(max(e["bound_bytes_ms"], e["bound_ops_ms"]) * e["count"] for e in per_shape)
+    row = dict(name="int8_conv_bn", route="cuda", source="multi_view_active_learning_tpu_torch/csrc/int8_conv.cu",
+               replaces="none (the JAX package leaves the int8 conv to XLA)",
+               max_abs_err=0.0, ms=total("ms"), plain_ms=total("plain_ms"),
+               bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               library_ms=total("plain_ms"))
+
+    # A forward makes no synchronizing call, at static or dynamic scales.
+    from multi_view_active_learning_tpu_torch.models import PoseResNet, quantize
+
+    state = random_state_dict(PoseResNet(JOINTS, DEPTH), seed=7)
+    qp = quantize.quantize_state_dict({k: v.to(dev) for k, v in state.items()}, DEPTH)
+    images = torch.randn((BATCH * VIEWS, IMG, IMG, 3), device=dev)
+    _, table = quantize.quantized_pose_resnet_forward(qp, images, DEPTH, collect_scales=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        quantize.quantized_pose_resnet_forward(qp, images, DEPTH, act_scales=table)
+        quantize.quantized_pose_resnet_forward(qp, images, DEPTH)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["int8_conv_bn"]
+    check(launches == 2 * 53, "K5 launched %d times in two forwards, want 106" % launches)
+    emit("k5", units_checked=checked, bit_equal=True, resnet_units=len(resnet),
+         hrnet_units=len(hrnet), hrnet_distinct=len(set(hrnet)), crops=K5_CROPS, per_shape=per_shape,
+         ms=row["ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+         int_mm_ms=total("library_ms"), bound_ms=bound_ms, bound_bytes_ms=bytes_ms,
+         bound_ops_ms=ops_ms, bound_by=row["bound_by"], share_of_bound=bound_ms / row["ms"],
+         forward_launches=launches // 2, synchronizing_calls=0, ptxas=_ptxas("int8_conv.cu"),
+         seconds=time.perf_counter() - t_phase)
+    return row
 
 
 def phase_model(dev):
@@ -1001,8 +1161,8 @@ def phase_main_path(dev):
     check(bool((sel < POOL - LABELED).all()) and len(set(sel.tolist())) == PICK, "coreset picks")
     for name in ("fused_decode", "min_distance_to_centers"):
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
-    for name in ("fused_deconv_bn_relu", "fused_deconv_bn_relu_int8"):
-        check(launches[name] == 0, "kernel %s launched on the standard-head path" % name)
+    for name in ("fused_deconv_bn_relu", "fused_deconv_bn_relu_int8", "int8_conv_bn"):
+        check(launches[name] == 0, "kernel %s launched on the float standard-head path" % name)
     emit("main_path", batch=BATCH, views=VIEWS, img=IMG, joints=JOINTS, depth=DEPTH,
          pairs=len(pairs), steps=steps, coreset_ms=coreset_ms, pool=POOL, pick=PICK,
          bf16_step_ms=steps["bfloat16"]["step_ms"],
@@ -1072,6 +1232,9 @@ def phase_paths(dev, ctx):
             want = 3 * forwards if head == kernel else 0
             check(launches[head] == want, "%s: %s launched %d times, want %d"
                   % (name, head, launches[head], want))
+        want = 53 * forwards if scales is not None else 0  # K5: a unit a conv
+        check(launches["int8_conv_bn"] == want, "%s: int8_conv_bn launched %d times, want %d"
+              % (name, launches["int8_conv_bn"], want))
         cos, max_err, agree = _agreement(heat, ctx["heats"]["bfloat16"])
         small = _agreement(small_heat, ctx["small_heat"])
         if scales is not None:
@@ -1201,6 +1364,9 @@ def phase_hrnet_path(dev, ctx):
     int8_launches = kernels.launch_counts()
     _check_scores(out, "hrnet int8")
     check(int8_launches["fused_decode"] == 4, "hrnet int8: K1 launches %s" % int8_launches)
+    hr_units = len(_k5_units("HRNET", BATCH * VIEWS))  # a forward's; 1 + 4 + 4 forwards
+    check(int8_launches["int8_conv_bn"] == 9 * hr_units,
+          "hrnet int8: K5 launches %s, want %d" % (int8_launches, 9 * hr_units))
     cos, max_err, agree = _agreement(int8_heat, heat)
     small = _agreement(int8.forward(ctx["small"]), engines["null"].forward(ctx["small"]))
     check(small[0] > INT8_COS, "HRNet int8 off the float heatmaps at %dx%d: cosine %g"
@@ -1335,9 +1501,10 @@ def phase_reformulations(dev, ctx):
     score-step ms beside the standard one's,
     timed in turns (standard, option, option, standard).  Then the int8
     stem (the default configuration, static scales) on the space-to-depth
-    input: its s32 products equal the plain stem's, and the heatmaps are
-    printed against the plain int8 path's."""
+    input: its K5 unit's output equals the plain stem's, and the heatmaps
+    are printed against the plain int8 path's."""
     import torch
+    from multi_view_active_learning_tpu_torch.kernels import int8_conv
     from multi_view_active_learning_tpu_torch.models import quantize
 
     t_phase = time.perf_counter()
@@ -1383,10 +1550,15 @@ def phase_reformulations(dev, ctx):
     with torch.inference_mode():
         flat, flat_s2d = std._flatten_normalize(images), opt._flatten_normalize(images)
         sx = scales["stem"]
-        acc = quantize.stem_s32(std._int8_weights, quantize._quant_act(flat, sx))
-        acc_s2d = quantize.stem_s32(opt._int8_weights, quantize._quant_act(flat_s2d, sx))
-    check(acc.dtype == torch.int32 and torch.equal(acc, acc_s2d),
-          "int8 stem: the s32 products differ on the space-to-depth input")
+        stem = []
+        for engine, x in ((std, flat), (opt, flat_s2d)):  # the stem's K5 unit on each
+            qp = engine._int8_weights
+            wq, stride, pad = quantize._stem_conv(qp["conv1.wq"], x.shape[-1])
+            stem.append(int8_conv.int8_conv_bn(x.to(torch.bfloat16).contiguous(), wq,
+                                               qp["conv1.ws"], qp["bn1.scale"], qp["bn1.bias"], sx,
+                                               None, stride, pad))
+    check(torch.equal(stem[0], stem[1]),
+          "int8 stem: K5's outputs differ on the space-to-depth input")
     cos, int8_err, agree = _agreement(opt.forward(images, scales), std.forward(images, scales))
     ms = {"standard": [], "option": []}
     for which in ("standard", "option", "option", "standard"):
@@ -1396,7 +1568,7 @@ def phase_reformulations(dev, ctx):
         _check_scores(out, "int8 s2d %s" % which)
         ms[which].append(step_ms)
     rows.append(dict(option="SPACE_TO_DEPTH_STEM", model="POSE_RESNET", dtype="int8",
-                     stem_s32_equal=True, forward_err_of_scale=int8_err, forward_cosine=cos,
+                     stem_unit_equal=True, forward_err_of_scale=int8_err, forward_cosine=cos,
                      forward_argmax_agreement=agree, standard_ms=ms["standard"],
                      option_ms=ms["option"]))
     emit("reformulations", batch=BATCH, views=VIEWS, img=IMG, joints=JOINTS, rows=rows,
@@ -1702,6 +1874,29 @@ def _synced_spans(records, skip=()):
     return names
 
 
+class _counting_int_mm:
+    """Counts the calls of torch._int_mm (the library's s8 product) while
+    the block runs: ``with _counting_int_mm() as calls: ...; calls[0]``."""
+
+    def __enter__(self):
+        import torch
+
+        self.real, self.calls = torch._int_mm, [0]
+
+        def counted(*args, **kwargs):
+            self.calls[0] += 1
+            return self.real(*args, **kwargs)
+
+        torch._int_mm = counted
+        return self.calls
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch._int_mm = self.real
+        return False
+
+
 def _check_sweep(sal, frames, tag):
     check(len(sal["al_metric"]) == frames, "%s: %d frames scored of %d"
           % (tag, len(sal["al_metric"]), frames))
@@ -1771,7 +1966,8 @@ def phase_pool_sweep(dev, ctx, tmp):
             cold_s, sal = _timed_sweep(strategy, pool, state)
             _check_sweep(sal, SWEEP_FRAMES, name + " cold sweep")
             kernels.reset_launch_counts()
-            warm_s, warm = _timed_sweep(strategy, pool, state)
+            with _counting_int_mm() as int_mm:
+                warm_s, warm = _timed_sweep(strategy, pool, state)
             launches = kernels.launch_counts()
             # The sync check on one more warm sweep, untimed: the profiler
             # session's cost a launch stays out of warm_s.
@@ -1790,6 +1986,12 @@ def phase_pool_sweep(dev, ctx, tmp):
             check(launches["fused_decode"] == batches,
                   "%s sweep: K1 launched %d times for %d batches"
                   % (name, launches["fused_decode"], batches))
+            # K5 a conv of every forward (the batches and the calibration),
+            # and no s8 product of the library's.
+            want = 53 * (batches + 1) if name == "int8" else 0
+            check(launches["int8_conv_bn"] == want and int_mm[0] == 0,
+                  "%s sweep: K5 launched %d times, want %d; torch._int_mm called %d times"
+                  % (name, launches["int8_conv_bn"], want, int_mm[0]))
 
             # The warm loader alone (host prep, no engine), then bare
             # score_steps on the same engine and frames, on the card.
@@ -1822,7 +2024,7 @@ def phase_pool_sweep(dev, ctx, tmp):
                 warm_frames_per_s=SWEEP_FRAMES / warm_s,
                 bare_step_s=bare_ms / 1e3, bare_frames_per_s=SWEEP_FRAMES / (bare_ms / 1e3),
                 host_share_of_warm=1.0 - (bare_ms / 1e3) / warm_s, batches=batches,
-                launches=launches, synchronizing_calls=len(syncs),
+                launches=launches, int_mm_calls=int_mm[0], synchronizing_calls=len(syncs),
                 warm_cold_err_of_tol=warm_cold_err, warm_cold_equal=warm == sal,
                 warm_bare_err_of_tol=bare_err)
 
@@ -3242,7 +3444,8 @@ def phase_serving(dev, ctx, tmp):
         export_s = time.perf_counter() - t0
         path = serving.save_serving(ep, os.path.join(serve_dir, name + serving.SERVING_SUFFIX))
         ops = [str(n.target) for n in ep.graph.nodes if str(n.target).startswith("mval.")]
-        want = ["mval.%s.default" % SERVE_HEADS[name]] * 3 if name in SERVE_HEADS else []
+        want = ["mval.int8_conv_bn.default"] * 53 if int8 else []  # K5 a backbone conv
+        want += ["mval.%s.default" % SERVE_HEADS[name]] * 3 if name in SERVE_HEADS else []
         check(ops == want + ["mval.fused_decode.default"], "%s: graph calls %s" % (name, ops))
         module = serving.build_serve_fn(engine, None, scales)
         eager[name] = {}
@@ -3290,8 +3493,10 @@ def phase_serving(dev, ctx, tmp):
                   "differ, confidence %g" % (name, b, heat_err, kp_differ, conf_err))
             launches = report[name]["launches"][str(b)]
             head = SERVE_HEADS.get(name)
+            int8 = "int8" in name or "k4" in name
             for kernel, n in launches.items():
-                want = 1 if kernel == "fused_decode" else 3 if kernel == head else 0
+                want = (1 if kernel == "fused_decode" else 3 if kernel == head
+                        else 53 if kernel == "int8_conv_bn" and int8 else 0)
                 check(n == want, "%s at B=%d: %s launched %d times a call, want %d"
                       % (name, b, kernel, n, want))
                 if n:
@@ -3314,7 +3519,8 @@ def phase_serving(dev, ctx, tmp):
         check(bench[name]["device"] == torch.cuda.get_device_name(0), "%s: bench device" % name)
     emit("serving_bench", bench=bench, args=SERVE_BENCH_ARGS,
          seconds=time.perf_counter() - t_phase)
-    for kernel in ("fused_decode", "fused_deconv_bn_relu", "fused_deconv_bn_relu_int8"):
+    for kernel in ("fused_decode", "fused_deconv_bn_relu", "fused_deconv_bn_relu_int8",
+                   "int8_conv_bn"):
         check(serving_launches.get(kernel), "%s was not launched by a serve call" % kernel)
     serving_launches["min_distance_to_centers"] = 0
     return serving_launches
@@ -3370,8 +3576,8 @@ def run_phases():
     t0 = time.perf_counter()
     smi = phase_device()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-    rows = [phase_k1(dev, flush), phase_k2(dev, flush), phase_k3(dev, flush), phase_k4(dev, flush)]
-    phase_int8_conv(dev)
+    rows = [phase_k1(dev, flush), phase_k2(dev, flush), phase_k3(dev, flush), phase_k4(dev, flush),
+            phase_k5(dev, flush)]
     phase_model(dev)
     phase_hrnet_model(dev)
     cfg = get_default_configs()
@@ -3396,10 +3602,12 @@ def run_phases():
     # Each kernel's launches on the path that drives it.
     launches["fused_deconv_bn_relu"] = path_launches["bf16_k3"]["fused_deconv_bn_relu"]
     launches["fused_deconv_bn_relu_int8"] = path_launches["int8_k4"]["fused_deconv_bn_relu_int8"]
+    launches["int8_conv_bn"] = path_launches["int8"]["int8_conv_bn"]
     for row in rows:
         row["launches"] = launches[row["name"]]
-    # K1 in a warm sweep of the default configuration, K2 in a CORESET step.
+    # K1 and K5 in a warm sweep of the default configuration, K2 in a CORESET step.
     rows[0]["sweep_launches"] = sweep_launches["int8"]["fused_decode"]
+    rows[4]["sweep_launches"] = sweep_launches["int8"]["int8_conv_bn"]
     rows[1]["sweep_launches"] = sweep_launches["coreset"]["min_distance_to_centers"]
     # K1 in the full-width training run (its evaluations).
     rows[0]["train_launches"] = train_launches["fused_decode"]
@@ -3416,6 +3624,29 @@ def run_phases():
     for row in rows:
         row["serving_launches"] = serving_launches[row["name"]]
     return smi, rows, time.perf_counter() - t0
+
+
+KERNEL_PHASES = {"k1": phase_k1, "k2": phase_k2, "k3": phase_k3, "k4": phase_k4, "k5": phase_k5}
+
+
+def run_kernel_phases(names) -> int:
+    """``chip_smoke.py --phase k5 [k1 ...]``: the build and the named kernel
+    phases alone, each kernel against its plain version."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    phase_device()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = [KERNEL_PHASES[name](dev, flush) for name in names]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "phases": list(names)}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3444,4 +3675,6 @@ if __name__ == "__main__":
         sys.exit(cli_rank(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-load":  # the process of phase_serving
         sys.exit(serve_load(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--phase":
+        sys.exit(run_kernel_phases(sys.argv[2:]))
     sys.exit(main())

@@ -50,6 +50,9 @@ SIGNATURES: Dict[str, List] = {
     # (x, s8 scratch, packed s8 weights, sx, ws, scale, bias, out, plan, plan length,
     #  is_bf16, stream)
     "mval_fused_deconv_bn_relu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _PLAN, _I, _I, _P],
+    # (x, s8 scratch, s8 weights, sx, ws, scale, bias, residual or null, out, plan,
+    #  plan length, stream): kernels/int8_conv.py::conv_plan
+    "mval_int8_conv_bn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _PLAN, _I, _P],
 }
 
 

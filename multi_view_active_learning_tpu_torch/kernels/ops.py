@@ -1,4 +1,4 @@
-"""The kernels K1, K3 and K4 as registered PyTorch operators (``torch.ops.mval``).
+"""The kernels K1, K3, K4 and K5 as registered PyTorch operators (``torch.ops.mval``).
 
 Each is a ``torch.library.custom_op`` whose operands are plain tensors and
 scalars, with three implementations:
@@ -8,12 +8,13 @@ scalars, with three implementations:
     address, strides and the card's SMs), launches through ``_build``,
     counts the launch on its wrapper (``decode.fused_decode.launches``,
     ``deconv.fused_deconv_bn_relu.launches``,
-    ``deconv.fused_deconv_bn_relu_int8.launches``), or raises;
+    ``deconv.fused_deconv_bn_relu_int8.launches``,
+    ``int8_conv.int8_conv_bn.launches``), or raises;
   * a fake implementation, the result's shape and dtype for symbolic
     shapes, which ``torch.export`` and FakeTensor tracing run instead.
 
 The wrappers (``decode.fused_decode``, ``deconv.fused_deconv_bn_relu_packed``,
-``deconv.fused_deconv_bn_relu_int8_packed``) check their operands and call
+``deconv.fused_deconv_bn_relu_int8_packed``, ``int8_conv.int8_conv_bn``) check their operands and call
 these operators, so eager code and an exported graph take one route.  An
 exported program that calls them (``serving.py``'s ``.pt2`` artifacts)
 needs this module imported before it loads: importing
@@ -22,9 +23,11 @@ nothing.  K2 (``pairwise.min_distance_to_centers``) is on no exported path
 and is not registered.
 """
 
+from typing import Optional
+
 import torch
 
-from . import deconv, decode
+from . import deconv, decode, int8_conv
 
 
 @torch.library.custom_op("mval::fused_decode", mutates_args=(), device_types="cpu")
@@ -91,3 +94,31 @@ def _fused_deconv_bn_relu_int8_fake(x, wq, ws, scale, bias, wpk, act_scale):
     n, h, w, _ = x.shape
     return x.new_empty((n, 2 * h, 2 * w, wpk.shape[1]))
 
+
+
+@torch.library.custom_op("mval::int8_conv_bn", mutates_args=(), device_types="cpu")
+def int8_conv_bn(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, act_scale: torch.Tensor, residual: Optional[torch.Tensor],
+                 stride: int, pad_before: int, pad_after: int, relu: bool) -> torch.Tensor:
+    """K5, the int8 conv unit: x [N, H, W, Cin] -> bf16 [N, Ho, Wo, Cout];
+    the plain twin on the CPU."""
+    return int8_conv.int8_conv_bn_plain(x, wq, ws, scale, bias, act_scale, residual, stride,
+                                        (pad_before, pad_after), relu)
+
+
+@int8_conv_bn.register_kernel("cuda")
+def _int8_conv_bn_cuda(x, wq, ws, scale, bias, act_scale, residual, stride, pad_before, pad_after,
+                       relu):
+    out = int8_conv.launch(x, wq, ws, scale, bias, act_scale, residual, stride,
+                           (pad_before, pad_after), relu)
+    int8_conv.int8_conv_bn.launches += 1
+    return out
+
+
+@int8_conv_bn.register_fake
+def _int8_conv_bn_fake(x, wq, ws, scale, bias, act_scale, residual, stride, pad_before, pad_after,
+                       relu):
+    k = wq.shape[1]
+    ho = (x.shape[1] + pad_before + pad_after - k) // stride + 1
+    wo = (x.shape[2] + pad_before + pad_after - k) // stride + 1
+    return x.new_empty((x.shape[0], ho, wo, wq.shape[0]), dtype=torch.bfloat16)

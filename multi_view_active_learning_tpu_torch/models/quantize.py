@@ -8,10 +8,13 @@ The port of the JAX package's models/quantize.py:
     +-127, with ``sx`` dynamic (max|x| / 127 of each conv input, the max
     taken over every rank's rows under a process group), static (a table
     from a ``collect_scales=True`` calibration pass), or recorded;
-  * each conv is an s8 im2col product (channels-last, ``torch._int_mm``,
-    s32 accumulation, exact) and one float32 epilogue that folds the BN:
-    ``acc * (sx * ws * bn_scale) + bn_bias`` (+ ReLU), rounded to bf16;
-  * residual adds and the maxpool run in bf16 between blocks;
+  * each conv is one int8 conv unit, K5 (kernels/int8_conv.py): the
+    activation's quantize, an s8 product (channels-last, s32 accumulation,
+    exact), one float32 epilogue that folds the BN, ``acc * (sx * ws *
+    bn_scale) + bn_bias`` (+ ReLU), rounded to bf16, and a block's residual
+    add and ReLU after its last conv; on the CPU its plain twin (an s8 im2col
+    product through ``torch._int_mm``), on a card the kernel;
+  * the maxpool runs in bf16 between blocks;
     ``float_tail_stages`` runs the last stages' convs in bf16 instead;
   * the deconv head runs the bf16 ``conv_transpose`` by default, or K4
     (kernels/deconv.py::fused_deconv_bn_relu_int8) with ``int8_head``;
@@ -37,8 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import parallel
-from ..kernels import deconv
-from ..ops.int8 import int8_matmul
+from ..kernels import deconv, int8_conv
 from .pose_resnet import RESNET_SPEC, BasicBlock
 
 _BF16 = torch.bfloat16
@@ -73,83 +75,54 @@ class _ActScales:
         return sx
 
 
-def _quant_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
-
-
-def _im2col(xq: torch.Tensor, k: int, stride: int, pad=None) -> torch.Tensor:
-    """NHWC [N, H, W, C] -> patches [N, Ho, Wo, k*k*C] ordered (ky, kx, c),
-    with the convolution's padding k // 2, or `pad` = (before, after) on
-    both spatial axes (F.unfold refuses s8)."""
-    if k == 1:
-        return xq[:, ::stride, ::stride, :]
-    before, after = (k // 2, k // 2) if pad is None else pad
-    xp = F.pad(xq, (0, 0, before, after, before, after))
-    n, hp, wp, _ = xp.shape
-    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
-    taps = [
-        xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride, :]
-        for ky in range(k) for kx in range(k)
-    ]
-    return torch.stack(taps, dim=3).reshape(n, ho, wo, -1)
-
-
-def _int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad=None) -> torch.Tensor:
-    """s8 NHWC input times s8 weights [Cout, k, k, Cin] -> s32 [N, Ho, Wo, Cout]."""
-    cols = _im2col(xq, wq.shape[1], stride, pad)
-    n, ho, wo, depth = cols.shape
-    acc = int8_matmul(cols.reshape(n * ho * wo, depth), wq.reshape(wq.shape[0], depth))
-    return acc.reshape(n, ho, wo, -1)
+# The plain twin's pieces (kernels/int8_conv.py), under the names the tests use.
+_quant_act = int8_conv.quant_act
+_int8_conv = int8_conv.int8_conv_s32
+_residual_relu = int8_conv.residual_relu
 
 
 def _qconv_bn(x, qp, conv: str, bn: str, scales: _ActScales, name: str,
-              stride: int = 1, relu: bool = True) -> torch.Tensor:
-    """int8 conv + folded BN (+ ReLU), returning bf16 NHWC."""
+              stride: int = 1, relu: bool = True, residual=None) -> torch.Tensor:
+    """int8 conv + folded BN (+ ReLU), then with `residual` relu(. +
+    residual), returning bf16 NHWC: one K5 unit."""
     sx = scales.scale_for(name, x)
-    acc = _int8_conv(_quant_act(x, sx), qp[conv + ".wq"], stride)
-    y = acc.to(torch.float32) * (sx * qp[conv + ".ws"] * qp[bn + ".scale"]) + qp[bn + ".bias"]
-    if relu:
-        y = torch.relu(y)
-    return y.to(_BF16)
+    return int8_conv.int8_conv_bn(x, qp[conv + ".wq"], qp[conv + ".ws"], qp[bn + ".scale"],
+                                  qp[bn + ".bias"], sx, residual, stride, relu=relu)
 
 
 def _fconv_bn(x, qp, conv: str, bn: str, scales, name, stride: int = 1,
-              relu: bool = True) -> torch.Tensor:
-    """bf16 conv + folded BN (+ ReLU): the float twin of _qconv_bn for the
-    mixed-precision tail (``scales`` and ``name`` are not used)."""
+              relu: bool = True, residual=None) -> torch.Tensor:
+    """bf16 conv + folded BN (+ ReLU) (+ the residual's add and ReLU): the
+    float twin of _qconv_bn for the mixed-precision tail (``scales`` and
+    ``name`` are not used)."""
     w = qp[conv + ".weight"]
     y = F.conv2d(x.to(_BF16).permute(0, 3, 1, 2), w, stride=stride, padding=w.shape[-1] // 2)
     y = y.permute(0, 2, 3, 1).to(torch.float32) * qp[bn + ".scale"] + qp[bn + ".bias"]
     if relu:
         y = torch.relu(y)
-    return y.to(_BF16)
-
-
-def _residual_relu(out: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-    return torch.relu(out.to(torch.float32) + residual.to(torch.float32)).to(_BF16)
+    y = y.to(_BF16)
+    return y if residual is None else _residual_relu(y, residual)
 
 
 def _basic_block(x, qp, conv_bn: Callable, scales, tname, prefix, stride, downsample):
     out = conv_bn(x, qp, tname + ".conv1", tname + ".bn1", scales, prefix + "/conv1", stride)
-    out = conv_bn(out, qp, tname + ".conv2", tname + ".bn2", scales, prefix + "/conv2",
-                  relu=False)
     residual = x
     if downsample:
         residual = conv_bn(x, qp, tname + ".downsample.0", tname + ".downsample.1", scales,
                            prefix + "/down", stride, relu=False)
-    return _residual_relu(out, residual)
+    return conv_bn(out, qp, tname + ".conv2", tname + ".bn2", scales, prefix + "/conv2",
+                   relu=False, residual=residual)
 
 
 def _bottleneck_block(x, qp, conv_bn: Callable, scales, tname, prefix, stride, downsample):
     out = conv_bn(x, qp, tname + ".conv1", tname + ".bn1", scales, prefix + "/conv1")
     out = conv_bn(out, qp, tname + ".conv2", tname + ".bn2", scales, prefix + "/conv2", stride)
-    out = conv_bn(out, qp, tname + ".conv3", tname + ".bn3", scales, prefix + "/conv3",
-                  relu=False)
     residual = x
     if downsample:
         residual = conv_bn(x, qp, tname + ".downsample.0", tname + ".downsample.1", scales,
                            prefix + "/down", stride, relu=False)
-    return _residual_relu(out, residual)
+    return conv_bn(out, qp, tname + ".conv3", tname + ".bn3", scales, prefix + "/conv3",
+                   relu=False, residual=residual)
 
 
 def _convs_and_bns(num_layers: int):
@@ -235,21 +208,20 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor], num_layers: int,
     return out
 
 
-def stem_s32(qp: Mapping[str, torch.Tensor], xq: torch.Tensor) -> torch.Tensor:
-    """PoseResNet's s8 stem product: s8 NHWC [N, H, W, 3] -> s32 [N, H/2,
-    W/2, 64], the 7x7 stride-2 conv.  A space-to-depth'd [N, H/2, W/2, 12]
-    input (TPU.SPACE_TO_DEPTH_STEM) takes the s8 weights through
-    SpaceToDepthStem's remap, a 4x4 stride-1 conv padded (2, 1) (JAX
-    models/quantize.py:236-245): the remap only moves and zero-pads weights,
-    so quantization commutes with it, the per-channel scales stay, and the
-    s32 sums hold the same products."""
-    wq = qp["conv1.wq"]
-    if xq.shape[-1] != 4 * wq.shape[-1]:
-        return _int8_conv(xq, wq, 2)
+def _stem_conv(wq: torch.Tensor, cin: int):
+    """PoseResNet's s8 stem as (weights, stride, pad) for an input of `cin`
+    channels: the 7x7 stride-2 conv padded 3 on 3 channels; on a
+    space-to-depth'd [N, H/2, W/2, 12] input (TPU.SPACE_TO_DEPTH_STEM) the s8
+    weights through SpaceToDepthStem's remap, a 4x4 stride-1 conv padded
+    (2, 1) (JAX models/quantize.py:236-245): the remap only moves and
+    zero-pads weights, so quantization commutes with it, the per-channel
+    scales stay, and the s32 sums hold the same products."""
+    if cin != 4 * wq.shape[-1]:
+        return wq, 2, (wq.shape[1] // 2, wq.shape[1] // 2)
     co, ci = wq.shape[0], wq.shape[-1]
     wp = F.pad(wq, (0, 0, 1, 0, 1, 0))  # [co, 8, 8, ci]
     wq = wp.reshape(co, 4, 2, 4, 2, ci).permute(0, 1, 3, 2, 4, 5).reshape(co, 4, 4, 4 * ci)
-    return _int8_conv(xq, wq, 1, pad=(2, 1))
+    return wq.contiguous(), 1, (2, 1)
 
 
 def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.Tensor,
@@ -266,14 +238,15 @@ def quantized_pose_resnet_forward(qp: Mapping[str, torch.Tensor], images: torch.
     runs the last n of the four residual stages in bf16."""
     block_cls, layer_sizes = RESNET_SPEC[num_layers]
     scales = _ActScales(act_scales, collect_scales)
-    x = images.to(_BF16)
+    x = images.to(_BF16).contiguous()
 
-    # Stem: 7x7/s2 int8 conv + BN + ReLU, then the 3x3/s2 maxpool (-inf pad).
+    # Stem: 7x7/s2 int8 conv + BN + ReLU (one K5 unit), then the 3x3/s2
+    # maxpool (-inf pad).
     sx = scales.scale_for("stem", x)
-    acc = stem_s32(qp, _quant_act(x, sx))
-    x = torch.relu(acc.to(torch.float32) * (sx * qp["conv1.ws"] * qp["bn1.scale"]) + qp["bn1.bias"])
-    x = x.to(_BF16)
-    x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    wq, stride, pad = _stem_conv(qp["conv1.wq"], x.shape[-1])
+    x = int8_conv.int8_conv_bn(x, wq, qp["conv1.ws"], qp["bn1.scale"], qp["bn1.bias"], sx, None,
+                               stride, pad)
+    x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1).contiguous()
 
     block_fn = _basic_block if block_cls is BasicBlock else _bottleneck_block
     expansion = block_cls.expansion
@@ -323,7 +296,7 @@ def quantized_hrnet_forward(qp: Mapping[str, torch.Tensor], images: torch.Tensor
     num_channels) encoding.  ``act_scales`` / ``collect_scales`` as in
     ``quantized_pose_resnet_forward``."""
     scales = _ActScales(act_scales, collect_scales)
-    x = images.to(_BF16)
+    x = images.to(_BF16).contiguous()
     for i in (1, 2):
         x = _qconv_bn(x, qp, "conv%d" % i, "bn%d" % i, scales, "stem%d" % i, 2)
     for i in range(4):

@@ -22,8 +22,9 @@ carried by ``from_flax``; the JAX serve functions run once per module.
     of the port's int8 tests (tests/test_torch_quantize.py): cosine > 0.999
     and per-map argmax agreement >= 0.95.
   * The K3 (TPU.PALLAS_HEAD) and K4 (TPU.INT8_DECONV) artifacts, whose
-    graphs call the registered kernel operators three times each, against
-    eager (the plain versions under the operators on the CPU): atol 1e-5.
+    graphs call the registered kernel operators three times each (and the
+    int8 one K5 once a backbone conv), against eager (the plain versions
+    under the operators on the CPU): atol 1e-5.
   * ``torch.library.opcheck`` on each registered operator.
 """
 
@@ -290,7 +291,9 @@ def test_head_kernel_artifacts_match_eager(weights, tmp_path, head):
                                                                 torch.from_numpy(box)))
     ep = serving.export_serving(engine, None, B, V, int8_scales=scales)
     op = "mval.fused_deconv_bn_relu" + ("_int8" if head == "k4" else "")
-    assert _op_calls(ep) == [op + ".default"] * 3 + ["mval.fused_decode.default"]
+    # The int8 backbone's 20 convs (PoseResNet-18) are K5's units.
+    trunk = ["mval.int8_conv_bn.default"] * 20 if head == "k4" else []
+    assert _op_calls(ep) == trunk + [op + ".default"] * 3 + ["mval.fused_decode.default"]
     path = serving.save_serving(ep, str(tmp_path / (head + serving.SERVING_SUFFIX)))
     got = _numpy(serving.load_serving(path, device="cpu")(images, box))
     for key in eager:
@@ -305,14 +308,19 @@ def _op_samples():
     bias = torch.from_numpy(rng.normal(size=8).astype(np.float32))
     k3 = deconv.pack_k3(w, scale, bias, torch.float32)
     k4 = deconv.pack_k4(*deconv.quantize_deconv_weight(w), scale, bias)
+    wq3 = torch.from_numpy(rng.integers(-127, 128, size=(8, 3, 3, 16)).astype(np.int8))
+    ws3 = torch.from_numpy(rng.uniform(0.01, 0.02, size=8).astype(np.float32))
     return {
         "fused_decode": (torch.from_numpy(rng.normal(size=(6, 64)).astype(np.float32)), 8, 4.0),
         "fused_deconv_bn_relu": (x, *k3),
         "fused_deconv_bn_relu_int8": (x, *k4, torch.tensor(0.02)),
+        "int8_conv_bn": (x.to(torch.bfloat16), wq3, ws3, scale, bias, torch.tensor(0.02),
+                         torch.from_numpy(rng.normal(size=(2, 2, 3, 8)).astype(np.float32)).to(
+                             torch.bfloat16), 2, 1, 1, False),
     }
 
 
-OPS = ("fused_decode", "fused_deconv_bn_relu", "fused_deconv_bn_relu_int8")
+OPS = ("fused_decode", "fused_deconv_bn_relu", "fused_deconv_bn_relu_int8", "int8_conv_bn")
 
 
 @pytest.mark.parametrize("name", OPS)
