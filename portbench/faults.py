@@ -13,17 +13,52 @@ Each fault replaces one callable of the program while the cell runs:
     (train: the loss each step returns, half again; sweep: each frame's AL
     metric, as the score step returns it, 1% higher);
   * ``keypoint_altered`` (sweep): each batch's first keypoint moved by one
-    stride in K1's output.
+    stride in K1's output;
+  * ``gradient_not_exchanged`` (train on more than one card): rank 0 steps
+    on its own share of the gradient and of the loss, the sum over the
+    ranks left out;
+  * ``bn_local`` (train on more than one card): rank 0's BatchNorms
+    normalize by, and keep, the statistics of its own rows.
 
-One chip runs no exchange between chips, so that fault has no cell here.
+The two faults of a multi-card cell are planted in rank 0 alone, which
+still takes its part in each collective (the other ranks would otherwise
+wait on it) and drops what it receives.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import List, Sequence, Tuple
 
 KINDS = {"train": ("unchanged_state", "half_batch", "answer_altered"),
          "sweep": ("half_batch", "answer_altered", "keypoint_altered")}
+# A training cell on more than one card has these besides.
+RANKS = ("gradient_not_exchanged", "bn_local")
+
+
+class _Parallel:
+    """The program's ``parallel`` module as one of its modules sees it,
+    with ``all_reduce_sum`` replaced."""
+
+    def __init__(self, module, all_reduce_sum):
+        self._module = module
+        self.all_reduce_sum = all_reduce_sum
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def _local_sums(keep_sum=lambda t: False):
+    """A ``parallel`` whose sums meet the collective with a copy and return
+    this rank's own values, except where `keep_sum(t)`."""
+    def make(parallel):
+        def all_reduce_sum(t, group=None):
+            if keep_sum(t):
+                return parallel.all_reduce_sum(t, group)
+            parallel.all_reduce_sum(t.clone(), group)
+            return t
+        return _Parallel(parallel, all_reduce_sum)
+    return make
 
 
 class Faults:
@@ -95,6 +130,17 @@ class Faults:
                 return state, dict(metrics, loss=metrics["loss"] * 1.5)
             return step
         self._patch(engine, "train_step", make)
+
+    def _gradient_not_exchanged(self, cell, engine):
+        # The step's one large sum is the flat gradient with the loss; the
+        # loss's counts (one or two numbers) are still summed.
+        self._patch(sys.modules[type(engine).__module__], "parallel",
+                    _local_sums(lambda t: t.numel() <= 2))
+
+    def _bn_local(self, cell, engine):
+        from multi_view_active_learning_tpu_torch.models import layers
+
+        self._patch(layers, "parallel", _local_sums())
 
     def _keypoint_altered(self, cell, engine):
         if not hasattr(cell, "capture"):

@@ -8,6 +8,16 @@ it; its correctness limits are ``portbench/limits/<workload>.json``; each
 per-layer metric is read by ``portbench/metrics/<name>.py``.  A cell or a
 metric added as such files and manifest entries needs no change here.
 
+A cell with ``chips`` > 1 runs one process a card.  The harness's process
+is rank 0: it alone measures, traces and checks, and prints the result.
+Its traffic kind starts ranks 1..n-1 (``Context.start_ranks``), each
+``portbench/rank.py`` with torchrun's environment (``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), from which
+the program joins the run through its own
+``parallel.initialize_distributed``; each follows rank 0's sequence of
+calls (``Context.follow``) on its own card.  A rank that ends with an
+error ends the run; ranks that outlive it are killed and reported.
+
 The program under test is the PyTorch port; nothing here, and nothing it
 runs, imports JAX or the JAX package.
 """
@@ -20,9 +30,11 @@ import importlib.util
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from typing import Callable, Dict, List, Optional, Sequence
@@ -45,6 +57,17 @@ def forbidden_modules() -> List[str]:
     return sorted(tops & set(FORBIDDEN))
 
 
+def forbidden_code(where: str) -> int:
+    """4, with what was found named on standard error, where `where` has
+    loaded a forbidden module; else 0."""
+    found = forbidden_modules()
+    if found:
+        print("portbench: forbidden modules loaded in %s: %s" % (where, found), file=sys.stderr,
+              flush=True)
+        return 4
+    return 0
+
+
 class Cell:
     """A workload of the manifest and the files it names."""
 
@@ -65,6 +88,19 @@ class Cell:
 
     def kind(self):
         return importlib.import_module("kinds." + self.traffic["kind"])
+
+    SAVED = ("name", "base", "workload", "config", "traffic", "limits", "end_to_end", "per_layer")
+
+    def saved(self) -> Dict:
+        """What another rank needs to run this cell as it stands (its files
+        as read, and as a test may have cut them)."""
+        return {key: getattr(self, key) for key in self.SAVED}
+
+    @classmethod
+    def restore(cls, saved: Dict) -> "Cell":
+        cell = cls.__new__(cls)
+        cell.__dict__.update(saved)
+        return cell
 
 
 def _named(entries: Sequence[Dict], name: str, what: str) -> Dict:
@@ -112,24 +148,182 @@ class NoFaults:
         pass
 
 
+def threads_a_rank(world: int) -> int:
+    """Each rank's share of the cores for its intra-op threads, as a
+    launcher of one process a card sets OMP_NUM_THREADS: the ranks'
+    threads then do not outnumber the cores."""
+    return max(1, (os.cpu_count() or 1) // world)
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """Ranks 1..n-1 of a multi-card cell, each ``rank.py`` in a process of
+    its own, and a thread that ends the run when one of them fails (rank 0
+    would otherwise wait in a collective that never completes)."""
+
+    def __init__(self, shared: Dict, path: str, script: str = os.path.join(HERE, "rank.py")):
+        world = int(shared["world"])
+        with open(path, "w") as f:
+            json.dump(shared, f)
+        self.procs = []
+        for rank in range(1, world):
+            env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(shared["port"]))
+            env.setdefault("OMP_NUM_THREADS", str(threads_a_rank(world)))
+            self.procs.append(subprocess.Popen([sys.executable, script, path, str(rank)], env=env))
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        while not self._done.wait(0.5):
+            for rank, proc in enumerate(self.procs, start=1):
+                code = proc.poll()
+                if code not in (None, 0):
+                    print("portbench: rank %d ended with code %d; ending the run" % (rank, code),
+                          file=sys.stderr, flush=True)
+                    for other in self.procs:
+                        other.kill()
+                    os._exit(5)
+
+    def end(self, timeout_s: float = 60.0):
+        """Wait for every rank; kill those alive after `timeout_s`.  Returns
+        (their exit codes, the pids killed)."""
+        self._done.set()
+        self._thread.join()
+        deadline, killed = time.monotonic() + timeout_s, []
+        for proc in self.procs:
+            try:
+                proc.wait(max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                killed.append(proc.pid)
+        return [proc.returncode for proc in self.procs], killed
+
+
+def _watch_parent() -> None:
+    """Another rank ends itself when rank 0, its parent, has ended."""
+    parent = os.getppid()
+
+    def watch():
+        while True:
+            time.sleep(1.0)
+            if os.getppid() != parent:
+                os._exit(6)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
 class Context:
     """What a traffic kind gets: the cell's files, the run's arguments, the
-    device, and the harness's helpers."""
+    device, and the harness's helpers.  `rank` and `world` place it in a
+    multi-card cell (`world` is the cell's ``chips``); rank 0 is the
+    harness's own process, the others get what rank 0 shares with them in
+    `shared`."""
 
     def __init__(self, cell: Cell, seed: int, seconds: float, trace: bool, device,
-                 t_start: float, overrides: Optional[Dict] = None, faults=None):
+                 t_start: float, overrides: Optional[Dict] = None, faults=None, rank: int = 0,
+                 shared: Optional[Dict] = None):
         import torch
 
         self.cell = cell
         self.config, self.traffic, self.limits = cell.config, cell.traffic, cell.limits
         self.seed, self.seconds, self.trace = int(seed), float(seconds), bool(trace)
+        self.rank, self.world = int(rank), int(cell.workload["chips"])
         self.device = torch.device(device)
+        if self.world > 1 and self.device.type == "cuda":
+            self.device = torch.device("cuda", self.rank)
         self.t_start = t_start
         self.overrides = overrides or {}
         self.fault = faults or NoFaults()
         self.peaks = load_json(os.path.join(HERE, "peaks.json"))["peaks"]
         self.tmp = tempfile.mkdtemp(prefix="portbench-")
         self._cfg = None
+        # What the other ranks repeat of rank 0's run besides set-up and the
+        # window: the traced window, the per-layer probes.
+        self.plan = {"traced_window": self.trace, "probes": self.trace}
+        self.shared = shared or {}
+        self.ranks: Optional[Ranks] = None
+        self.rank_codes: List[int] = []
+        self.ranks_killed: List[int] = []
+        self.group = False
+
+    # -- the ranks of a multi-card cell ----------------------------------------
+
+    def start_ranks(self, **extra) -> None:
+        """On rank 0 of a multi-card cell: start ranks 1..n-1, sharing the
+        cell, the run's arguments and `extra` (such as the data's path) with
+        them.  Elsewhere nothing."""
+        if self.world == 1 or self.rank != 0:
+            return
+        import torch
+
+        self._threads = torch.get_num_threads()
+        torch.set_num_threads(threads_a_rank(self.world))
+        self.shared = dict(extra, cell=self.cell.saved(), seed=self.seed, seconds=self.seconds,
+                           trace=self.trace, device=self.device.type, overrides=self.overrides,
+                           plan=self.plan, world=self.world, port=free_port(),
+                           traces=os.path.join(self.tmp, "traces"))
+        os.makedirs(self.shared["traces"])
+        self.ranks = Ranks(self.shared, os.path.join(self.tmp, "ranks.json"))
+
+    def join_group(self) -> None:
+        """Join the ranks' process group through the program's own
+        ``parallel.initialize_distributed`` (NCCL on cards, gloo on the CPU):
+        rank 0 with the address it chose, the others from torchrun's
+        environment.  Nothing in a one-card cell."""
+        if self.world == 1:
+            return
+        from multi_view_active_learning_tpu_torch import parallel
+
+        if self.rank == 0:
+            parallel.initialize_distributed("localhost:%d" % self.shared["port"], self.world, 0,
+                                            device=self.device)
+        else:
+            parallel.initialize_distributed(device=self.device)
+        self.group = True
+
+    def barrier(self, name: str) -> None:
+        if self.group:
+            from multi_view_active_learning_tpu_torch import parallel
+
+            parallel.process_barrier("portbench/" + name)
+
+    def end_ranks(self) -> None:
+        """Leave the process group and, on rank 0, wait for the other ranks
+        (killing those that outlive the run).  A rank that failed fails the
+        run."""
+        if self.group:
+            from multi_view_active_learning_tpu_torch import parallel
+
+            parallel.shutdown()
+            self.group = False
+        if self.ranks is not None:
+            import torch
+
+            torch.set_num_threads(self._threads)
+            ranks, self.ranks = self.ranks, None
+            self.rank_codes, self.ranks_killed = ranks.end()
+            failed = [r for r, code in enumerate(self.rank_codes, start=1)
+                      if code != 0 and ranks.procs[r - 1].pid not in self.ranks_killed]
+            if failed:
+                raise RuntimeError("rank(s) %s of the cell failed: codes %s"
+                                   % (failed, self.rank_codes))
+
+    def rank_traces(self) -> List[Dict]:
+        """The traced window's reduction that each other rank left."""
+        out = []
+        for rank in range(1, self.world):
+            path = os.path.join(self.shared["traces"], "rank%d.json" % rank)
+            if os.path.exists(path):
+                out.append(load_json(path))
+        return out
 
     # -- the program's configuration -------------------------------------------
 
@@ -246,19 +440,55 @@ class Context:
             summary = tracing.reduce(prof, spans.records, clock)
             del prof
         peak = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0
-        probes = cell.probes() if self.trace else {}
+        probes = cell.probes() if self.plan["probes"] else {}
         attempted, failed = cell.attempted_failed()
         cell.release()
+        if summary is not None and self.world > 1:
+            # busy_s: the mean over the cards of each one's traced window.
+            busy = [summary["busy_s"]] + [t["busy_s"] for t in self.rank_traces()]
+            summary["busy_s_by_rank"] = busy
+            summary["busy_s"] = sum(busy) / len(busy)
         with float32_reference():
             numbers = cell.check()
         return {"setup_s": setup_s, "e2e": e2e, "window": window, "traced_window": traced,
                 "trace": summary, "probes": probes, "attempted": attempted, "failed": failed,
                 "memory_peak_bytes": int(peak), "numbers": numbers}
 
+    def follow(self, cell) -> None:
+        """Another rank's run: what rank 0's ``drive`` calls of the program,
+        in its order, each collective of rank 0 met here; its traced window
+        reduced and left for rank 0; no result, no check."""
+        import torch
+
+        import tracing
+
+        cell.setup()
+        cell.window(self.seconds)
+        if self.plan["traced_window"]:
+            spans = tracing.Spans(True)
+            self.sync()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                clock = tracing.Clock(self.device)
+                with spans.mark("window"):
+                    cell.window(self.seconds)
+                clock.end()
+            summary = tracing.reduce(prof, spans.records, clock)
+            del prof
+            path = os.path.join(self.shared["traces"], "rank%d.json" % self.rank)
+            with open(path, "w") as f:
+                json.dump({"busy_s": summary["busy_s"], "window_s": summary["window_s"],
+                           "device_ops": summary["device_ops"]}, f)
+        if self.plan["probes"]:
+            cell.probes()
+        cell.release()
+
     def close(self):
         import shutil
 
-        shutil.rmtree(self.tmp, ignore_errors=True)
+        try:
+            self.end_ranks()
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> Dict[str, Dict]:
@@ -321,6 +551,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
         result["diagnostics"] = {"window": out["window"], "traced_window": out["traced_window"],
                                  "setup_s": out["setup_s"], "probes": out["probes"],
                                  "numbers": out["numbers"]}
+        if ctx.world > 1:
+            result["diagnostics"]["ranks"] = {"codes": ctx.rank_codes, "killed": ctx.ranks_killed}
+            if trace:
+                result["diagnostics"]["busy_s_by_rank"] = out["trace"]["busy_s_by_rank"]
         if trace:
             top = sorted(out["trace"]["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
             result["diagnostics"]["top_kernels"] = [[n[:120], s, k] for n, (s, k) in top]
@@ -417,14 +651,34 @@ def main(argv: Optional[Sequence[str]] = None, t_start: Optional[float] = None) 
         result = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", t_start)
     finally:
         killed = stop_child_processes()
+    killed = killed + result["diagnostics"].get("ranks", {}).get("killed", [])
     if killed:
         print("portbench: killed child processes left running: %s" % killed, file=sys.stderr)
         return 3
-    found = forbidden_modules()
-    if found:
-        print("portbench: forbidden modules loaded in this process: %s" % found, file=sys.stderr)
+    if forbidden_code("this process"):
         return 4
     for name, c in result["checks"].items():
         print("check %s %s limit %s" % (name, c["value"], c["limit"]), file=sys.stderr)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def follow_main(path: str, rank: int, t_start: float) -> int:
+    """Rank `rank` of a multi-card cell (``rank.py``): what rank 0 shared in
+    the file `path`, followed on this rank's card."""
+    _watch_parent()
+    shared = load_json(path)
+    sys.path.insert(0, HERE)
+    cell = Cell.restore(shared["cell"])
+    ctx = Context(cell, shared["seed"], shared["seconds"], shared["trace"], shared["device"],
+                  t_start, shared["overrides"], rank=rank, shared=shared)
+    ctx.plan = shared["plan"]
+    try:
+        ctx.follow(cell.kind().CELL(ctx))
+    finally:
+        try:
+            ctx.close()
+        finally:
+            stop_child_processes()
+    # A rank that ends with another code than 0 ends rank 0's run (`Ranks`).
+    return forbidden_code("rank %d" % rank)

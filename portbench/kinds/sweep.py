@@ -1,6 +1,7 @@
 """Traffic kind ``sweep``: whole scoring sweeps of an unlabeled pool, back
 to back, each one ``ActiveLearningStrategy._compute_sal_dict`` as an AL
-iteration calls it (its int8 calibration included).
+iteration calls it (its int8 calibration included, where the configuration
+scores in int8).
 
 Set-up makes the pool's tree from the seed (rendered by worker processes
 while the strategy and the seeded weights are built), reads the pool once through the program's loader with a decode
@@ -11,9 +12,10 @@ shape the window uses.  The window runs whole sweeps until `seconds` have passed
 the last sweep.
 
 The check (after the window, on the program's own outputs): in sampled
-batches of the last sweep, the heatmaps against the reference forward at
-the configuration's precision (calibrated by the reference on the same
-first batch), K1's keypoints and peaks against the reference decode of the
+batches of the last sweep, the heatmaps against the reference forward in
+the arithmetic of the configuration's ``precision.scoring``
+(``precision.scoring_arithmetic``: int8 calibrated by the reference on the
+same first batch; bfloat16), K1's keypoints and peaks against the reference decode of the
 same heatmaps, and the sweep's per-frame outputs (3D keypoints, inlier
 count, sal / al metric, MKPE) against the reference RANSAC-DLT over those
 keypoints.
@@ -31,7 +33,7 @@ import torch
 import datagen
 from reference import arch, counting, geometry
 from reference import data as ref_data
-from reference.precision import QuantizedScoring, normalize_bf16
+from reference.precision import normalize_bf16, scoring_arithmetic
 
 POSE_KEYS = ("sal_metric", "al_metric", "inlier_count", "mkpe")
 POSE_RTOL = 1e-3  # relative to 1 + |reference|; float32 against float64
@@ -184,16 +186,19 @@ class SweepCell:
 
     # ------------------------------------------------------------------ check
 
-    def reference_heatmaps(self, frames: List[Dict], qmax: int, scales=None):
+    def reference_heatmaps(self, frames: List[Dict], control: bool = False, scales=None):
+        """The reference's heatmaps of `frames` in the configuration's
+        scoring arithmetic (with `control`, its control's), and the scale
+        table an int8 arithmetic recorded where `scales` was not given."""
         prep = ref_data.prepare_frames(frames, int(self.data["image_size"]),
                                        float(self.ctx.cfg_value("DATA.SCALE_BBOX")))
         images = torch.from_numpy(prep["images"]).to(self.ctx.device)
         B, V = images.shape[:2]
-        ops = QuantizedScoring(qmax, scales)
+        ops = scoring_arithmetic(self.ctx.config["precision"], control, scales)
         with torch.no_grad():
             hm = arch.forward(self.model, arch.Params(self.weights), ops,
                               normalize_bf16(images.reshape((B * V,) + images.shape[2:])))
-        return hm.reshape((B, V) + hm.shape[1:]), ops.recorded, prep
+        return hm.reshape((B, V) + hm.shape[1:]), getattr(ops, "recorded", None), prep
 
     def check(self, control: bool = False) -> Dict[str, float]:
         """The numbers compared for this run.  With `control`, the
@@ -201,10 +206,12 @@ class SweepCell:
         heatmaps (the sweep's other outputs are then the reference's own
         on them)."""
         frames = datagen.frame_records(self.root, "train")
-        qmax = int(self.ctx.config["precision"]["qmax"])
-        _, scales, _ = self.reference_heatmaps(frames[:self.B], qmax)
-        if control:
-            _, low_scales, _ = self.reference_heatmaps(frames[:self.B], 7)
+        # An int8 arithmetic calibrates on the first batch, as the sweep does.
+        scales = low_scales = None
+        if self.ctx.config["precision"]["scoring"] == "int8":
+            scales = self.reference_heatmaps(frames[:self.B])[1]
+            if control:
+                low_scales = self.reference_heatmaps(frames[:self.B], True)[1]
         stride = float(self.ctx.cfg_value("POSE_ESTIMATOR.STRIDE"))
         pairs = torch.as_tensor(geometry.view_pairs(
             int(self.data["views"]), int(self.ctx.cfg_value("AL.RANSAC_N_ITERS")),
@@ -214,10 +221,10 @@ class SweepCell:
         decode_gap, mismatched, n_frames = 0.0, 0, 0
         for b in self.sampled:
             batch_frames = frames[b * self.B:(b + 1) * self.B]
-            ref_hm, _, prep = self.reference_heatmaps(batch_frames, qmax, scales)
+            ref_hm, _, prep = self.reference_heatmaps(batch_frames, False, scales)
             n = len(batch_frames)
             if control:
-                got = self.reference_heatmaps(batch_frames, 7, low_scales)[0]
+                got = self.reference_heatmaps(batch_frames, True, low_scales)[0]
             else:
                 got = self.kept[b]["heatmaps"][:n]
             sq_diff += float(torch.sum(torch.square(got.double() - ref_hm.double())))

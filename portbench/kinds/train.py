@@ -15,6 +15,18 @@ TOTAL_STEPS, so the call ends in its one log point as an AL iteration's
 training does.  ``train_frames_per_s`` is the frames trained over the
 whole call.
 
+A cell on n cards (``chips`` > 1) runs n ranks, rank 0 this process
+(``harness.Context.start_ranks``): each rank trains on its shard of the
+frames at the traffic's batch (TRAIN.BATCH_SIZE a rank), and caches the
+views of its shard and the validation frames in set-up; the program sums
+the gradients and the BatchNorm statistics over the ranks.  The window is
+timed on rank 0 from a barrier before its call, and
+``train_frames_per_s`` counts every rank's frames.  Rank 0 alone keeps
+what the check compares, which is then the global batch's: the reference
+trains on the n shards' batches together, its BatchNorm over all of them,
+its convs rematerialized in the backward pass so that the global batch
+fits (``training.run_steps(remat=True)``).
+
 The check (after the window): the reference trains the same weights on
 the same frames (its own decode of the tree's files, its own targets, the
 loader's order worked out from RANDOM_SEED) for `first_steps` steps and is
@@ -29,7 +41,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -56,10 +68,16 @@ class TrainCell:
         from multi_view_active_learning_tpu_torch.device import use_deterministic_algorithms
 
         ctx = self.ctx
-        tree = datagen.start_tree(os.path.join(ctx.tmp, "tree"), ctx.seed,
-                                  int(self.t["train_frames"]), int(self.t["val_frames"]),
-                                  int(self.data["joints"]), int(self.data["views"]))
-        self.root = tree.root
+        tree = None
+        if ctx.rank == 0:
+            tree = datagen.start_tree(os.path.join(ctx.tmp, "tree"), ctx.seed,
+                                      int(self.t["train_frames"]), int(self.t["val_frames"]),
+                                      int(self.data["joints"]), int(self.data["views"]))
+            self.root = tree.root
+            ctx.start_ranks(tree=self.root)
+        else:
+            self.root = ctx.shared["tree"]
+        ctx.join_group()
         self.cfg = ctx.program_config(self.root)
         use_deterministic_algorithms(ctx.device)
         s = self.strategy = strategy_mod.ActiveLearningStrategy(self.cfg, ctx.device)
@@ -69,9 +87,12 @@ class TrainCell:
         self.train_pool = build_dataset(self.cfg, "train")
         self.val_pool = build_dataset(self.cfg, "val")
         self.train_pool.label_all()
-        tree.wait()
-        ctx.fill_view_cache(s, list(self.train_pool.labeled_data)
-                            + list(self.val_pool.unlabeled_data.values()), self.B)
+        if tree is not None:
+            tree.wait()
+        ctx.barrier("tree")
+        # Each rank's loader reads every world-th frame of what it is given.
+        frames = self._shard() + list(self.val_pool.unlabeled_data.values())
+        ctx.fill_view_cache(s, [f for f in frames for _ in range(ctx.world)], self.B)
         ctx.fault.install(self)
         # The first steps, through the window's own call.
         engine, kept = s.engine, {"losses": []}
@@ -101,6 +122,27 @@ class TrainCell:
                          int(round(self.ctx.seconds * float(self.t["steps_per_second"]))))
         self._keep_last_window_step()
 
+    def _shard(self) -> List[Dict]:
+        """The training frames this rank's loader reads: all of them on one
+        card; on n, its shard of their training order (every n-th)."""
+        frames = list(self.train_pool.labeled_data)
+        if self.ctx.world == 1:
+            return frames
+        by_guid = {f["guid"]: f for f in frames}
+        mine = self._order()[self.ctx.rank::self.ctx.world]
+        return [by_guid[g] for g in dict.fromkeys(f["guid"] for f in mine)]
+
+    def _order(self) -> List[Dict]:
+        """The training frames in the order a ``_train`` call's loaders
+        read them, as the reference's records: the labeled frames in reading
+        order, TRAIN's epoch of DATA.EPOCH_SIZE copies, permuted by
+        ``default_rng(RANDOM_SEED + 2)``; the same order in every call."""
+        frames = datagen.frame_records(self.root, "train")
+        copies = int(self.ctx.cfg_value("DATA.EPOCH_SIZE")) // len(frames)
+        order = list(frames) * (1 + copies)
+        perm = np.random.default_rng((int(self.ctx.seed) + 2) & 0x7FFFFFFF).permutation(len(order))
+        return [order[i] for i in perm]
+
     def _keep_last_window_step(self):
         """In the window's call, keep the state its last step starts from
         and the parameters it leaves (a copy of each flat buffer, on the
@@ -129,7 +171,8 @@ class TrainCell:
         """Engine.train_step on one resident batch, on a copy of the state
         (CUDA events)."""
         s = self.strategy
-        loader = s._get_loader(FrameList(self.train_pool.labeled_data[:self.B]), self.B)
+        loader = s._get_loader(FrameList(self.train_pool.labeled_data[:self.B * self.ctx.world]),
+                               self.B)
         try:
             batch = next(iter(loader))
         finally:
@@ -160,13 +203,14 @@ class TrainCell:
         ctx = self.ctx
         step0, count0 = int(self.state.step), int(self.state.count)
         ctx.sync()
+        ctx.barrier("window")
         t0 = time.perf_counter()
         self.state = self.train(self.steps)
         ctx.sync()
         elapsed = time.perf_counter() - t0
         steps = int(self.state.step) - step0
         self.skipped = steps - (int(self.state.count) - count0)
-        frames = steps * self.B
+        frames = steps * self.B * ctx.world
         self.window_info = {"frames": frames, "seconds": elapsed, "steps": steps,
                             "crops": frames * int(self.data["views"])}
         return {"train_frames_per_s": frames / elapsed}
@@ -175,16 +219,21 @@ class TrainCell:
         return self.window_info["steps"], self.skipped
 
     def probes(self) -> Dict:
+        """The loader alone over this rank's frames (rank 0's on n cards),
+        and the bare step, whose collectives every rank meets."""
         s = self.strategy
-        loader = s._get_loader(self.train_pool, self.B)
-        t0, n = time.perf_counter(), 0
-        try:
-            for batch in loader:
-                n += int(np.sum(batch["frame_valid"]))
-        finally:
-            loader.close()
-        return {"loader_frames_per_s": n / (time.perf_counter() - t0),
-                "train_step_ms": self._step_ms()}
+        out = {}
+        if self.ctx.rank == 0:
+            loader = s._get_loader(self.train_pool, self.B)
+            t0, n = time.perf_counter(), 0
+            try:
+                for batch in loader:
+                    n += int(np.sum(batch["frame_valid"]))
+            finally:
+                loader.close()
+            out["loader_frames_per_s"] = n / (time.perf_counter() - t0)
+        out["train_step_ms"] = self._step_ms()
+        return out
 
     def release(self):
         self._restore_step()
@@ -197,29 +246,29 @@ class TrainCell:
                                  "loss": float(kept["loss"]),
                                  "params": _views(kept["after"], state.params, state.flat["params"])}
         del self.strategy, self.state, self.kept_window
+        self.ctx.end_ranks()
         self.ctx.free()
 
     # ------------------------------------------------------------------ check
 
     def reference_batches(self, indices=None):
-        """The batches of the `indices`-th steps of a ``_train`` call (the
-        first steps by default) as the loader feeds them: the labeled frames
-        in reading order, permuted by ``default_rng(RANDOM_SEED + 2)``
-        (TRAIN's epoch of DATA.EPOCH_SIZE copies), B at a time, the same
-        order in every epoch and every call."""
-        frames = datagen.frame_records(self.root, "train")
-        copies = int(self.ctx.cfg_value("DATA.EPOCH_SIZE")) // len(frames)
-        order = list(frames) * (1 + copies)
-        perm = np.random.default_rng((int(self.ctx.seed) + 2) & 0x7FFFFFFF).permutation(len(order))
-        order = [order[i] for i in perm]
+        """The global batches of the `indices`-th steps of a ``_train`` call
+        (the first steps by default) as the loaders feed them: the training
+        order (``_order``), each of the n ranks reading every n-th frame of
+        it (its shard), B at a time; the global batch is the ranks' batches
+        in rank order, the same in every epoch and every call."""
+        order = self._order()
+        world = self.ctx.world
+        shards = [order[r::world] for r in range(world)]
         size = int(self.data["image_size"])
         stride = int(self.ctx.cfg_value("POSE_ESTIMATOR.STRIDE"))
         sigma = float(self.ctx.cfg_value("DATA.SIGMA"))
         batches = []
-        epoch = -(-len(order) // self.B)
+        epoch = -(-len(shards[0]) // self.B)
         for step in (range(self.first) if indices is None else indices):
             step %= epoch
-            prep = ref_data.prepare_frames(order[step * self.B:(step + 1) * self.B], size,
+            frames = [f for shard in shards for f in shard[step * self.B:(step + 1) * self.B]]
+            prep = ref_data.prepare_frames(frames, size,
                                            float(self.ctx.cfg_value("DATA.SCALE_BBOX")))
             images = torch.from_numpy(prep["images"]).to(self.ctx.device)
             B, V = images.shape[:2]
@@ -235,13 +284,14 @@ class TrainCell:
         batches = batches or self.reference_batches()
         lr = float(self.ctx.cfg_value("TRAIN.OPTIM.LR"))
         clip = float(self.ctx.cfg_value("TRAIN.LOSS_CLIP_VALUE"))
-        out = training.run_steps(self.model, self.weights, batches, lr, clip, fp8=fp8)
+        remat = self.ctx.world > 1
+        out = training.run_steps(self.model, self.weights, batches, lr, clip, fp8=fp8, remat=remat)
         if not fp8:
             # The configuration's own arithmetic, bf16, for the first step:
             # its heatmaps give the scale of honest rounding for these
             # weights, its first BatchNorm's statistics what bf16 computes.
             bf16 = training.run_steps(self.model, self.weights, batches[:1], lr, clip,
-                                      dtype=torch.bfloat16)
+                                      dtype=torch.bfloat16, remat=remat)
             out["bf16_output"], out["bf16_first_stats"] = bf16["first_output"], bf16["first_stats"]
         return out
 
@@ -282,10 +332,12 @@ class TrainCell:
         batch = self.reference_batches([self.steps - 1])
         lr = float(self.ctx.cfg_value("TRAIN.OPTIM.LR"))
         clip = float(self.ctx.cfg_value("TRAIN.LOSS_CLIP_VALUE"))
-        ref = training.run_steps(self.model, start, batch, lr, clip, adam=adam)
+        remat = self.ctx.world > 1
+        ref = training.run_steps(self.model, start, batch, lr, clip, adam=adam, remat=remat)
         loss, params = stage["loss"], stage["params"]
         if control:
-            low = training.run_steps(self.model, start, batch, lr, clip, fp8=True, adam=adam)
+            low = training.run_steps(self.model, start, batch, lr, clip, fp8=True, adam=adam,
+                                     remat=remat)
             loss, params = low["losses"][0], low["params"]
         norms = {n: float(torch.linalg.vector_norm(g.double())) for n, g in ref["first_grad"].items()}
         median = float(np.median(list(norms.values())))
@@ -386,11 +438,12 @@ def compare_training(ref: Dict, got: Dict, initial: Dict[str, torch.Tensor]) -> 
 
 
 def min_seconds_per_frame(ctx) -> float:
-    """The least time for one trained frame: forward and backward counted
-    as 3x the forward's operations, all at the bf16 peak."""
+    """The least time the cell's cards take on one trained frame: forward
+    and backward counted as 3x the forward's operations, all at the bf16
+    peak, shared by the cards."""
     data = ctx.config["data"]
     macs = counting.forward_macs(ctx.config["model"], int(data["image_size"]))
-    return 3.0 * 2.0 * sum(macs.values()) / ctx.peaks["bf16"] * int(data["views"])
+    return 3.0 * 2.0 * sum(macs.values()) / ctx.peaks["bf16"] * int(data["views"]) / ctx.world
 
 
 CELL = TrainCell

@@ -11,8 +11,9 @@ check compares, for the program as it is (the lower readings); with
 precision in the program's place); with ``--fault``, the program with that
 fault planted (faults.py); with ``--probes``, the per-layer probes too
 (``--batch`` sets another batch, for a sweep of the bare step's rate over
-batch sizes).  One JSON line a seed.  The benchmark's own runs
-never run this.  Needs the CUDA device unless ``--device cpu``.
+batch sizes).  One JSON line a seed.  A multi-card cell runs its ranks
+as the benchmark does, the fault planted in rank 0.  The benchmark's own
+runs never run this.  Needs the CUDA devices unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ def read_seed(cell, seed: int, seconds: float, device, control: bool, fault, ove
     t0 = time.perf_counter()
     faults = Faults([fault]) if fault else None
     ctx = harness.Context(cell, seed, seconds, False, device, t0, overrides, faults)
+    ctx.plan = {"traced_window": False, "probes": probes}
     try:
         c = cell.kind().CELL(ctx)
         c.setup()

@@ -1,4 +1,4 @@
-"""Plain PyTorch forwards of the benchmark's two architectures.
+"""Plain PyTorch forwards of the benchmark's architectures.
 
 PoseResNet (Xiao et al., "Simple Baselines for Human Pose Estimation and
 Tracking", ECCV 2018): a ResNet trunk, three 4x4 stride-2 transposed convs
@@ -15,10 +15,22 @@ or, given meta tensors, records every parameter's name, shape and kind:
 that record is what the benchmark's seeded weights are drawn from.  The
 arithmetics live in ``precision.py`` and ``counting.py``.  Nothing here
 imports the program.
+
+The two convolutional topologies are kept here (``ARCHS``); any other
+``model["arch"]`` is the function ``forward(P, ops, x, model)`` of
+``reference/arch_<arch>.py``, found by that name.  Besides the conv
+primitives (``unit``, ``deconv_unit``, ``final``, ``maxpool``,
+``residual_relu``, ``add``, ``relu``, ``upsample``) every arithmetic has
+those of a transformer block: ``linear`` (a weight [out, in], or of the
+given `shape` flattened to that, and a bias), ``layer_norm``,
+``attention`` (softmax(q k^T * scale) v over heads, q, k, v [N, T, D]),
+``gelu`` (erf); a learned table (a position embedding) is a parameter of
+kind ``table``, fetched with ``P.get`` and summed with ``add``.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -52,6 +64,16 @@ class Params:
         out = tuple(self.get("%s.%s" % (name, leaf), (c,), leaf) for leaf in BN_PARAMS[:4])
         self.get(name + ".num_batches_tracked", (), "count")
         return out
+
+    def linear(self, name: str, cout: int, cin: int, bias: bool = True, shape=None):
+        """(weight [cout, cin], bias [cout] or None); a weight stored in
+        another `shape` (a patch embedding's [D, C, p, p]) is flattened."""
+        w = self.get(name + ".weight", shape or (cout, cin), "linear").reshape(cout, cin)
+        return w, (self.get(name + ".bias", (cout,), "bias") if bias else None)
+
+    def norm(self, name: str, c: int):
+        """A LayerNorm's (weight, bias), each [c]."""
+        return self.get(name + ".weight", (c,), "weight"), self.get(name + ".bias", (c,), "bias")
 
 
 # --------------------------------------------------------------- PoseResNet
@@ -179,5 +201,13 @@ def hrnet(P: Params, ops, x: torch.Tensor, model: Dict) -> torch.Tensor:
 ARCHS = {"pose_resnet": pose_resnet, "hrnet": hrnet}
 
 
+def topology(name: str):
+    """The forward of architecture `name`: one of ``ARCHS``, else
+    ``forward`` of ``reference/arch_<name>.py``."""
+    if name in ARCHS:
+        return ARCHS[name]
+    return importlib.import_module("%s.arch_%s" % (__package__, name)).forward
+
+
 def forward(model: Dict, P: Params, ops, x: torch.Tensor) -> torch.Tensor:
-    return ARCHS[model["arch"]](P, ops, x, model)
+    return topology(model["arch"])(P, ops, x, model)

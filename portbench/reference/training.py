@@ -34,16 +34,20 @@ def gaussian_targets(keypoints_2d: torch.Tensor, stride: int, size: int, sigma: 
 
 def run_steps(model: Dict, state: Dict[str, torch.Tensor], batches: List[Dict], lr: float,
               loss_clip: float, dtype=torch.float32, fp8: bool = False,
-              adam: Optional[Tuple[Dict, Dict, int]] = None) -> Dict:
+              adam: Optional[Tuple[Dict, Dict, int]] = None, remat: bool = False) -> Dict:
     """Train from `state` (float32 weights and BN statistics under the
     reference names) on `batches` ({"x": [N, 3, H, W] float32, "target":
     [N, K, h, w]}, every crop real), with Adam's moments and count from
-    `adam` (mu, nu, count) or fresh.  Returns the losses, the first step's
-    gradient per parameter and its first crop's heatmaps, and the
+    `adam` (mu, nu, count) or fresh.  With `remat`, each conv unit's
+    activations are recomputed in the backward pass (the same arithmetic;
+    a batch of many crops then fits).  Returns the losses, the first
+    step's gradient per parameter and its first crop's heatmaps, and the
     parameters and BN statistics after the last step."""
     spec = arch.Params()
-    arch.forward(model, spec, counting.MacCounter(), torch.empty((1, 3, 64, 64), device="meta"))
-    trainable = [n for n, _, k in spec.spec if k in ("conv", "head", "weight", "bias")]
+    arch.forward(model, spec, counting.MacCounter(),
+                 torch.empty((1,) + tuple(batches[0]["x"].shape[1:]), device="meta"))
+    trainable = [n for n, _, k in spec.spec
+                 if k in ("conv", "head", "linear", "table", "weight", "bias")]
     stat_names = [n for n, _, k in spec.spec if k in ("running_mean", "running_var")]
     params = {n: state[n].detach().clone().to(torch.float32) for n in trainable}
     stats = {n: state[n].detach().clone().to(torch.float32) for n in stat_names}
@@ -58,8 +62,9 @@ def run_steps(model: Dict, state: Dict[str, torch.Tensor], batches: List[Dict], 
     losses, first_grad, first_output, first_stats = [], None, None, None
     for batch in batches:
         leaves = {n: p.clone().requires_grad_() for n, p in params.items()}
-        ops = TrainingArithmetic(dtype, fp8)
+        ops = TrainingArithmetic(dtype, fp8, remat)
         out = arch.forward(model, arch.Params({**leaves, **stats, **_counts(spec)}), ops, batch["x"])
+        records = list(ops.records)  # the forward's (a recomputation records again)
         n, _, h, w = out.shape
         loss = torch.sum(torch.square(out - batch["target"])) / (n * h * w)
         grads = torch.autograd.grad(loss, list(leaves.values()))
@@ -78,7 +83,7 @@ def run_steps(model: Dict, state: Dict[str, torch.Tensor], batches: List[Dict], 
                 m_hat = mu[name] / (1 - ADAM_B1 ** count)
                 v_hat = nu[name] / (1 - ADAM_B2 ** count)
                 params[name] = p - lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
-            for i, (mean, var) in enumerate(ops.records):
+            for i, (mean, var) in enumerate(records):
                 rm, rv = stat_names[2 * i], stat_names[2 * i + 1]
                 stats[rm] = (1 - BN_MOMENTUM) * stats[rm] + BN_MOMENTUM * mean
                 stats[rv] = (1 - BN_MOMENTUM) * stats[rv] + BN_MOMENTUM * var

@@ -34,43 +34,48 @@ def test_top_level_keys_and_command():
 
 
 def test_names_units_and_entries():
+    _check_entries(MANIFEST)
+
+
+def _check_entries(manifest):
     names = []
-    for c in MANIFEST["configs"]:
+    for c in manifest["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and _line(c["source"]) and _line(c["why"])
         assert len(c["reduced"]) <= 16 and all(NAME.match(k) for k in c["reduced"])
         assert c["file"].startswith("portbench/")
         names.append(c["name"])
-    for w in MANIFEST["workloads"]:
+    for w in manifest["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and _line(w["why"])
         assert w["chips"] in (1, 4) and w["config"] in names
         names.append(w["name"])
-    for m in MANIFEST["end_to_end"] + MANIFEST["per_layer"]:
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["source"] in SOURCES
         names.append(m["name"])
-    for m in MANIFEST["end_to_end"]:
+    for m in manifest["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    for m in MANIFEST["per_layer"]:
+    for m in manifest["per_layer"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
-        assert _line(m["layer"]) and m["moves"] in {e["name"] for e in MANIFEST["end_to_end"]}
+        assert _line(m["layer"]) and m["moves"] in {e["name"] for e in manifest["end_to_end"]}
         if m["unit"] == "%" and ("roofline" in m["name"] or "mfu" in m["name"]):
             assert m["better"] == "higher"
     assert len(names) == len(set(names))
-    assert "setup_s" in {m["name"] for m in MANIFEST["end_to_end"]}
-    used = {w["config"] for w in MANIFEST["workloads"]}
-    assert used == {c["name"] for c in MANIFEST["configs"]}
+    assert "setup_s" in {m["name"] for m in manifest["end_to_end"]}
+    used = {w["config"] for w in manifest["workloads"]}
+    assert used == {c["name"] for c in manifest["configs"]}
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in MANIFEST["workloads"]])
 def test_cell_files_found_by_name(workload):
     cell = harness.Cell(MANIFEST, workload)
     assert cell.config["name"] == cell.workload["config"]
-    assert cell.traffic["kind"] in ("sweep", "train")
-    cell.kind()
+    # Any kind with its module under kinds/ (and its `run`) is found.
+    assert os.path.exists(os.path.join(harness.HERE, "kinds", cell.traffic["kind"] + ".py"))
+    assert callable(cell.kind().run)
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"} and len(cell.end_to_end) >= 2
     assert cell.per_layer, "every cell reports a per-layer metric"
     for m in cell.per_layer:
@@ -109,3 +114,33 @@ def test_a_cell_and_a_metric_added_as_files_are_picked_up(tmp_path):
     class R:
         window = {"sweeps": 3}
     assert reader(R()) == 3
+
+
+def test_a_kind_added_as_a_file_is_found(tmp_path, monkeypatch):
+    """A traffic kind is its module under kinds/, found by the traffic's
+    ``kind``: no list of kinds names it."""
+    kinds = tmp_path / "kinds"
+    kinds.mkdir()
+    (kinds / "__init__.py").write_text("")
+    (kinds / "replay.py").write_text("def run(ctx):\n    return 'replayed'\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    import importlib
+    import sys
+
+    saved = {k: v for k, v in sys.modules.items() if k == "kinds" or k.startswith("kinds.")}
+    for k in saved:
+        del sys.modules[k]
+    try:
+        cell = harness.Cell(MANIFEST, MANIFEST["workloads"][0]["name"])
+        cell.traffic = dict(cell.traffic, kind="replay")
+        assert cell.kind().run(None) == "replayed"
+    finally:
+        for k in [k for k in sys.modules if k == "kinds" or k.startswith("kinds.")]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+        importlib.invalidate_caches()
+
+
+def test_multi_card_cells_ask_for_four_cards_at_most_a_quarter():
+    four = [w for w in MANIFEST["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(MANIFEST["workloads"]) // 4)

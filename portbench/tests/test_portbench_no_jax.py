@@ -8,7 +8,7 @@ import sys
 
 import harness
 
-MODULES = ["harness", "datagen", "weights", "tracing", "faults", "readings", "kinds.sweep",
+MODULES = ["harness", "rank", "datagen", "weights", "tracing", "faults", "readings", "kinds.sweep",
            "kinds.train", "reference.arch", "reference.counting", "reference.data",
            "reference.geometry", "reference.precision", "reference.training"]
 PROGRAM = ["multi_view_active_learning_tpu_torch.strategy",

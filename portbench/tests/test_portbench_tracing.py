@@ -38,3 +38,14 @@ def test_reduce_cuts_the_window_and_charges_gaps_to_spans():
     assert dict(out["idle_gaps"]) == pytest.approx({"bench.window": 800e-9 + 300e-9,
                                                     "bench.to_device": 300e-9})
     assert out["clock_skew_us"] == 0
+
+
+@pytest.mark.parametrize("name,label", [
+    ("void k5_wgmma_kernel<128, 256, true>(Plan)", "K5_int8_conv"),
+    ("k5_quantize_kernel(QuantArgs)", "K5_int8_conv"),
+    ("void k5_im2col_kernel<3>(Args)", "K5_int8_conv"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "nccl"),
+    ("decode_bulk_kernel", "K1_fused_decode"),
+    ("void at::native::batch_norm_collect_statistics_kernel<float>", "batch_norm")])
+def test_kernel_classes(name, label):
+    assert tracing.kernel_class(name) == label

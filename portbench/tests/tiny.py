@@ -1,18 +1,20 @@
 """A cell cut to a size the CPU runs in seconds, for the tests: 4 views of
-64 x 64 crops, a handful of frames, no decode workers.  Only the tests use
+64 x 64 crops, a handful of frames, no decode workers, at most two ranks.  Only the tests use
 it; the benchmark's cells run at their files' sizes."""
 
 import os
 
 import harness
 
-MANIFEST = os.path.join(harness.ROOT, "BENCHMARK.json")
 
-
-def tiny_cell(name: str, base: str = harness.HERE, root: str = harness.ROOT):
-    """(cell, program overrides)."""
-    cell = harness.Cell(harness.load_json(os.path.join(root, "BENCHMARK.json")), name, root, base)
+def tiny_cell(name: str, base: str = harness.HERE, root: str = harness.ROOT, manifest=None):
+    """(cell, program overrides); `manifest` in place of `root`'s BENCHMARK.json."""
+    if manifest is None:
+        manifest = harness.load_json(os.path.join(root, "BENCHMARK.json"))
+    cell = harness.Cell(manifest, name, root, base)
     cell.config["data"].update(views=4, image_size=64)
+    # A multi-card cell runs two ranks here (gloo, one process each).
+    cell.workload = dict(cell.workload, chips=min(int(cell.workload["chips"]), 2))
     overrides = {"DATA": {"INPUT_WIDTH": 64, "INPUT_HEIGHT": 64}}
     if cell.traffic["kind"] == "sweep":
         cell.traffic.update(pool_frames=6, sampled_batches=2, probe_steps=1)

@@ -18,7 +18,9 @@ the time and launches of named kernels, and the idle gaps between busy
 intervals, each charged to the innermost benchmark span the host was in
 when the device went idle.  ``kernel_class`` is a frozen copy of
 tools/profile_scoring_torch.py::kernel_class, with copies, sets and
-BatchNorm's kernels named and names matched without case.
+BatchNorm's kernels named and names matched without case, K5's kernels
+(the int8 conv unit, csrc/int8_conv.cu) classed ``K5_int8_conv`` and
+NCCL's collectives ``nccl``.
 """
 
 from __future__ import annotations
@@ -44,8 +46,15 @@ CLASSES = (
 )
 
 
+K5_KERNELS = ("k5_wgmma_kernel", "k5_quantize_kernel", "k5_im2col_kernel")
+
+
 def kernel_class(name: str) -> str:
     squeezed = name.replace(" ", "")
+    if any(k in squeezed for k in K5_KERNELS):
+        return "K5_int8_conv"
+    if "nccl" in name.lower():
+        return "nccl"
     if "deconv_quantize_kernel" in squeezed or "deconv_wgmma_kernel<true" in squeezed:
         return "K4_fused_deconv_int8"
     if "deconv_wgmma_kernel" in squeezed or "deconv_f32_kernel" in squeezed:

@@ -2,10 +2,11 @@
 
 The parameter list comes from the benchmark's own topology (reference/
 arch.py), under the reference repo's module names, which the port loads
-as they are.  Every conv and transposed-conv weight is drawn N(0, 1 /
-fan_in) (fan-in scaled, as lecun_normal without its truncation), the final
-conv N(0, 0.0004 / fan_in); BatchNorm scale 1, shift 0, running mean 0 and
-variance 1; biases 0.
+as they are.  Every conv, transposed-conv and linear weight is drawn N(0,
+1 / fan_in) (fan-in scaled, as lecun_normal without its truncation), the
+final conv N(0, 0.0004 / fan_in), a learned table (kind ``table``, a
+position embedding) N(0, 0.02^2); BatchNorm and LayerNorm scale 1, shift
+0, running mean 0 and variance 1; biases 0.
 One normal draw from a ``torch.Generator`` on the device covers every
 weight, scaled by one per-element vector; the state dict's tensors are
 views of that one float32 buffer.
@@ -19,23 +20,29 @@ from typing import Dict, List, Tuple
 import torch
 
 HEAD_GAIN = 0.02
+TABLE_STD = 0.02
+DRAWN = ("conv", "head", "linear", "table")
 
 
 def _std(shape: Tuple[int, ...], kind: str) -> float:
-    """1 / sqrt(fan_in), fan_in = shape[1] * kh * kw as torch counts it
-    (for a transposed conv's [Cin, Cout, kh, kw] weight too); the final
+    """1 / sqrt(fan_in), fan_in the product of shape[1:] as torch counts it
+    (shape[1] * kh * kw for a conv, and for a transposed conv's [Cin, Cout,
+    kh, kw] weight too; a linear's [out, in] weight reads `in`); the final
     conv at HEAD_GAIN times that, so its heatmaps start small (a loss far
-    under TRAIN.LOSS_CLIP_VALUE) but not negligible against the targets."""
-    fan_in = shape[1] * shape[2] * shape[3]
+    under TRAIN.LOSS_CLIP_VALUE) but not negligible against the targets; a
+    table TABLE_STD."""
+    if kind == "table":
+        return TABLE_STD
+    fan_in = math.prod(shape[1:])
     return (HEAD_GAIN if kind == "head" else 1.0) / math.sqrt(fan_in)
 
 
 def make_state_dict(spec: List[Tuple[str, Tuple[int, ...], str]], seed: int,
                     device) -> Dict[str, torch.Tensor]:
-    """`spec`: (name, shape, kind) from ``arch.Params``; kinds ``conv`` and
-    ``head`` are drawn, the rest are constants."""
+    """`spec`: (name, shape, kind) from ``arch.Params``; kinds ``DRAWN``
+    are drawn, the rest are constants."""
     device = torch.device(device)
-    drawn = [(n, s, k) for n, s, k in spec if k in ("conv", "head")]
+    drawn = [(n, s, k) for n, s, k in spec if k in DRAWN]
     sizes = [math.prod(s) for _, s, _ in drawn]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
